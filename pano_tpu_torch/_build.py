@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` sources compile with ``nvcc`` into one shared library
+Each ``csrc/*.cu`` source compiles with its own ``nvcc`` process, all
+started together, and one more links the objects into a shared library
 with a plain C interface, ``build/pano_tpu_torch/libpano_kernels.so`` at
 the repository root, loaded with ctypes. The build runs at the first
 kernel launch and again whenever a source, a header or the flags change
@@ -31,9 +32,9 @@ LOG_PATH = BUILD_DIR / "nvcc.log"
 # -fmad=false: no a*b+c contraction, so the stencil and warp arithmetic
 # round exactly like the plain PyTorch versions (see csrc/harris.cu). The
 # matcher's products use explicit fmaf, which is exact for its integers.
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + [
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-fmad=false", "-Xptxas", "-v",
 ]
 
@@ -57,6 +58,12 @@ SIGNATURES = {
     "pano_warp_compose_overlay": (
         [_V, _V, _V] + [_I] * 12 + [_F] * 9 + [_V]
     ),
+    # right, rgb, weight, hr, wr, wy0, wx0, win_h, win_w, has_alpha,
+    # emit_weight, m00..m22, stream
+    "pano_warp_packed": [_V, _V, _V] + [_I] * 8 + [_F] * 9 + [_V],
+    # left, win_rgb, w_win, out, hl, wl, out_h, out_w, ty, tx,
+    # wy0, wx0, wy1, wx1, feather, stream
+    "pano_compose_canvas": [_V] * 4 + [_I] * 11 + [_V],
 }
 
 _lib = None
@@ -106,21 +113,38 @@ def build(force: bool = False) -> pathlib.Path:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     cu, _ = _sources()
-    # Build into a temporary name, then rename: a concurrent loader never
-    # sees a half-written library.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *map(str, cu)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    LOG_PATH.write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, LIB_PATH)
+    log = []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs = [pathlib.Path(work) / (src.stem + ".o") for src in cu]
+        jobs = []
+        for src, obj in zip(cu, objs):
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", str(obj),
+                   str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(" ".join(cmd) + "\n" + out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n{out}")
+        if not failed:
+            # Link into a temporary name, then rename: a concurrent loader
+            # never sees a half-written library.
+            tmp = pathlib.Path(work) / LIB_PATH.name
+            cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]
+            proc = subprocess.run(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+            log.append(" ".join(cmd) + "\n" + proc.stdout)
+            if proc.returncode != 0:
+                failed.append(f"nvcc link failed ({proc.returncode}):\n"
+                              f"{proc.stdout}")
+        LOG_PATH.write_text("".join(log))
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(tmp, LIB_PATH)
     stamp.write_text(digest + "\n")
     return LIB_PATH
 

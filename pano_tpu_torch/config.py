@@ -76,14 +76,16 @@ class RansacOptions:
 class StitchOptions:
     """Whole-pipeline options."""
 
-    blend: str = "overlay"          # only 'overlay' is ported so far
+    blend: str = "overlay"          # 'overlay' | 'feather' | 'multiband'
     dtype: str = "float32"          # compute dtype for image math
     canvas_bucket: int = 128        # kept for config parity: the port
     #                                 allocates the exact canvas
     interpolation: str = "bilinear"  # warp sampling
-    use_pallas_warp: bool = True    # fused warp + overlay kernel
-    #                                 (csrc/warp.cu)
-    gain_compensation: bool = False  # not ported yet
+    use_pallas_warp: bool = True    # the warp and compose kernels
+    #                                 (csrc/warp.cu, csrc/compose.cu)
+    gain_compensation: bool = False  # scalar exposure gain over the
+    #                                  overlap, applied to the warped
+    #                                  right image (any blend)
     bundle_adjust: str = "auto"     # not ported yet (multi-image modes)
 
 

@@ -49,23 +49,6 @@ def bgr_to_gray_f32(img_u8: torch.Tensor) -> torch.Tensor:
     return torch.round(0.114 * b + 0.587 * g + 0.299 * r)
 
 
-def _tap_sum(img: torch.Tensor, kernel: np.ndarray) -> torch.Tensor:
-    """Valid-region correlation as a constant-weighted tap sum, taps in
-    row-major order, zero-weight taps skipped (``conv._tap_sum``)."""
-    ksize = kernel.shape[0]
-    h, w = img.shape[-2], img.shape[-1]
-    vh, vw = h - (ksize - 1), w - (ksize - 1)
-    acc = None
-    for i in range(ksize):
-        for j in range(ksize):
-            wgt = float(kernel[i, j])
-            if wgt == 0.0:
-                continue
-            term = img[..., i:i + vh, j:j + vw] * wgt
-            acc = term if acc is None else acc + term
-    return acc
-
-
 def _zero_border(valid: torch.Tensor, k: int) -> torch.Tensor:
     return torch.nn.functional.pad(valid, (k, k, k, k))
 
@@ -91,8 +74,8 @@ def _separable_valid_zero_border(
 
 def harris_response(gray: torch.Tensor, k: float) -> torch.Tensor:
     """R = det(M) - k*trace(M)^2 with the reference's zero borders."""
-    gx = _zero_border(_tap_sum(gray, conv_ops.sobel_x_kernel()), 1)
-    gy = _zero_border(_tap_sum(gray, conv_ops.sobel_y_kernel()), 1)
+    gx = _zero_border(conv_ops._tap_sum(gray, conv_ops.sobel_x_kernel()), 1)
+    gy = _zero_border(conv_ops._tap_sum(gray, conv_ops.sobel_y_kernel()), 1)
     prods = torch.stack([gx * gx, gy * gy, gx * gy])
     sm = _separable_valid_zero_border(
         prods, conv_ops.gaussian_kernel_1d(5, 1.0)

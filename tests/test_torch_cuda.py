@@ -153,3 +153,84 @@ def test_stitch_pair_fast_on_gpu_matches_cpu():
     h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
     d = (got.cpu()[:h, :w].int() - want[:h, :w].int()).abs().amax(-1)
     assert float((d > 3).float().mean()) < 0.01
+
+
+PROJ = np.array([[0.97, 0.02, 12.0], [-0.015, 1.02, 4.0], [2e-5, -1e-5, 1.0]])
+
+
+@pytest.mark.parametrize("has_alpha", [False, True])
+def test_warp_packed_kernel_vs_plain(has_alpha):
+    """K4b on a projective H at an unaligned window: RGB max |d| <= 1 on
+    < 0.1% of the window, weight within 1e-5; emit_weight=False skips
+    the weight and keeps the RGB."""
+    from pano_tpu_torch.ops import cuda_warp
+
+    right = torch.from_numpy(_img((200, 300), 58)).cuda()
+    m_inv = np.linalg.inv(PROJ)
+    window = (3, 5, 240, 401)
+    rgb, w = cuda_warp.warp_packed(right, m_inv, window, has_alpha)
+    rgb_p, w_p = cuda_warp.warp_packed_plain(right, m_inv, window, has_alpha)
+    d = (rgb.int() - rgb_p.int()).abs().amax(-1)
+    assert int(d.max()) <= 1
+    assert int((d != 0).sum()) < 1e-3 * 237 * 396
+    assert float((w - w_p).abs().max()) <= 1e-5
+    rgb2, none = cuda_warp.warp_packed(right, m_inv, window, has_alpha,
+                                       emit_weight=False)
+    assert none is None and torch.equal(rgb2, rgb)
+
+
+@pytest.mark.parametrize("blend", ["overlay", "feather"])
+def test_compose_kernel_vs_plain(blend):
+    """K5 at unaligned placements, black holes in the window: overlay
+    bit-identical, feather max |d| <= 1."""
+    from pano_tpu_torch.ops import cuda_compose
+
+    rng = np.random.default_rng(59)
+    left = torch.from_numpy(_img((101, 157), 60)).cuda()
+    win = _img((77, 93), 61)
+    hole = rng.random((77, 93)) < 0.3
+    win[hole] = 0
+    w = np.where(hole, 0.0, rng.random((77, 93))).astype(np.float32)
+    args = (left, torch.from_numpy(win).cuda(), torch.from_numpy(w).cuda(),
+            13, 29, (5, 41, 82, 134), 170, 230, blend)
+    got = cuda_compose.compose_canvas(*args)
+    want = cuda_compose.compose_canvas_plain(*args)
+    d = int((got.int() - want.int()).abs().max())
+    assert d <= (0 if blend == "overlay" else 1)
+
+
+def test_feather_pair_on_gpu_matches_cpu():
+    """The feather pair on the card (K4b + K5, no K4a) against the plain
+    versions on the CPU, with one injected sample table."""
+    from pano_tpu_torch import PanoConfig, PairStitcher
+    from pano_tpu_torch.config import (
+        HarrisOptions, RansacOptions, StitchOptions,
+    )
+    from pano_tpu_torch.ops import cuda_compose, cuda_warp
+
+    r = np.random.default_rng(62)
+    base = r.integers(0, 60, (128, 208, 3)).astype(np.uint8)
+    for _ in range(180):
+        y, x = r.integers(2, 118), r.integers(2, 198)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    left, right = base[:, 48:].copy(), base[:, :160].copy()
+    table = torch.from_numpy(r.integers(0, 2**31, (500, 4)))
+    cfg = PanoConfig(harris=HarrisOptions(max_keypoints=512),
+                     ransac=RansacOptions(num_iterations=500),
+                     stitch=StitchOptions(blend="feather"))
+
+    def sampler(n_valid):
+        return table.to(n_valid.device) % torch.clamp(n_valid.long(), min=1)
+
+    want = PairStitcher(cfg, device="cpu", sampler=sampler).stitch_pair_fast(
+        left, right)
+    cuda_warp.launches = cuda_warp.packed_launches = cuda_compose.launches = 0
+    got = PairStitcher(cfg, device="cuda", sampler=sampler).stitch_pair_fast(
+        left, right)
+    assert (cuda_warp.launches, cuda_warp.packed_launches,
+            cuda_compose.launches) == (0, 1, 1)
+    assert got.is_cuda and got.dtype == torch.uint8
+    assert all(abs(a - b) <= 1 for a, b in zip(got.shape, want.shape))
+    h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
+    d = (got.cpu()[:h, :w].int() - want[:h, :w].int()).abs().amax(-1)
+    assert float((d > 3).float().mean()) < 0.01

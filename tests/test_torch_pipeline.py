@@ -1,6 +1,9 @@
-"""The pano_tpu_torch pair stitch as a whole vs the JAX package's fused
-pair stitch (its warp kernel in interpret mode), on the CPU."""
+"""The pano_tpu_torch pair stitch as a whole vs the JAX package's pair
+stitch on the CPU: the fused path (its Pallas kernels in interpret mode)
+with every blend and gain, and the staged path with its stage lines."""
 
+import dataclasses
+import re
 import subprocess
 import sys
 
@@ -19,6 +22,7 @@ from pano_tpu.ops import warp as JW  # noqa: E402
 import pano_tpu_torch  # noqa: E402
 from pano_tpu_torch import config as TC  # noqa: E402
 from pano_tpu_torch import pipeline as TP  # noqa: E402
+from pano_tpu_torch import timer as TT  # noqa: E402
 
 SMALL = dict(max_keypoints=512, num_iterations=500)
 JAX_SMALL = pano_tpu.PanoConfig(
@@ -196,10 +200,176 @@ def test_config_from_reference():
 
 
 def test_unported_options_raise():
-    cfg = PORT_SMALL.replace(
-        stitch=TC.StitchOptions(blend="feather")
-    )
-    with pytest.raises(NotImplementedError):
+    """Every blend, gain and the staged timing are ported; an unknown
+    blend name raises ValueError, as in the JAX package."""
+    for blend in ("overlay", "feather", "multiband"):
+        cfg = PORT_SMALL.replace(stitch=TC.StitchOptions(
+            blend=blend, gain_compensation=True))
+        TP.PairStitcher(cfg, print_timing=True, device="cpu")
+    cfg = PORT_SMALL.replace(stitch=TC.StitchOptions(blend="nope"))
+    with pytest.raises(ValueError, match="unknown blend"):
         TP.PairStitcher(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        TP.PairStitcher(PORT_SMALL, print_timing=True, device="cpu")
+
+
+# --- every blend and gain through the fused path ----------------------------
+
+CONFIGS = [("feather", False), ("multiband", False), ("overlay", True),
+           ("feather", True)]
+CONFIG_IDS = ["feather", "multiband", "overlay+gain", "feather+gain"]
+
+
+def _configs(blend, gain):
+    jc = JAX_SMALL.replace(stitch=dataclasses.replace(
+        JAX_SMALL.stitch, blend=blend, gain_compensation=gain))
+    return jc, TC.config_from_reference(jc)
+
+
+def _port_stitcher(cfg, **kw):
+    return TP.PairStitcher(
+        cfg, device="cpu",
+        sampler=jax_sampler(cfg.ransac.seed, SMALL["num_iterations"]), **kw,
+    )
+
+
+@pytest.fixture(scope="module")
+def jax_blend_stitchers(jax_stitcher):
+    """One JAX stitcher per configuration, kept for the module so that the
+    pairs (all of one shape) share its compiled compose graphs. They share
+    jax_stitcher's estimate graph too: off the TPU no stitch option
+    reaches it (``_src_pack_mode`` is None)."""
+    out = {}
+    for blend, gain in CONFIGS:
+        st = JP.PairStitcher(_configs(blend, gain)[0], print_timing=False)
+        st._fused_estimate_src = jax_stitcher._fused_estimate_src
+        out[blend, gain] = st
+    return out
+
+
+def _diff(got, want):
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return np.abs(got.astype(int) - want.astype(int)).max(-1)
+
+
+def _bar(d, blend):
+    """Feather and gain: (d > 3) on < 1 %; multiband: (d > 10) on < 2 %
+    (the JAX package's own fused-vs-staged bar, tests/test_pipeline.py:
+    511-513: the pyramids see another window)."""
+    if blend == "multiband":
+        assert (d > 10).mean() < 0.02, (d.max(), (d > 10).mean())
+    else:
+        assert (d > 3).mean() < 0.01, (d.max(), (d > 3).mean())
+
+
+@pytest.mark.parametrize("pair", [translated_pair, projective_pair],
+                         ids=["translation", "projective"])
+@pytest.mark.parametrize("blend,gain", CONFIGS, ids=CONFIG_IDS)
+def test_blends_match_jax_fused(jax_blend_stitchers, blend, gain, pair):
+    """Port stitch_pair_fast vs JAX stitch_pair_fast(_assume_tpu=True):
+    same panorama shape, pixels within the bar."""
+    left, right = pair()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_blend_stitchers[blend, gain].stitch_pair_fast(
+            jnp.asarray(left), jnp.asarray(right), _assume_tpu=True))
+    got = _port_stitcher(_configs(blend, gain)[1]).stitch_pair_fast(
+        left, right)
+    assert got is not None and got.dtype == torch.uint8
+    _bar(_diff(got.numpy(), want), blend)
+
+
+def test_gain_engages_like_jax_fused_compose(jax_blend_stitchers):
+    """An exposure offset (right x 1.25) under an exact homography: the
+    fused compose of both packages scales the right image by the same
+    gain (the right-only columns come out darker than the input)."""
+    left, right = translated_pair()
+    right = np.clip(right.astype(np.int32) * 1.25, 0, 255).astype(np.uint8)
+    h = np.eye(3)
+    h[0, 2] = -48.0
+    row = np.zeros(14, np.float32)
+    row[:9] = h.ravel()
+    row[9:13] = 100.0, 100.0, 1.0, 100.0
+    st = jax_blend_stitchers["feather", True]
+    with pltpu.force_tpu_interpret_mode():
+        packed_out, canvas = st._fused_compose(0, 128, 160)(
+            jnp.asarray(left), st._pack_src()(jnp.asarray(right)),
+            jnp.asarray(row))
+    status, want = JP.fast_path_crop(np.asarray(packed_out), canvas)
+    assert status == "ok"
+    port = _port_stitcher(_configs("feather", True)[1])
+    geo = TP.fused_canvas_geometry(row, left.shape[:2], right.shape[:2])
+    got = port._compose(torch.from_numpy(left), torch.from_numpy(right),
+                        geo.m_inv, geo.ty, geo.tx, geo.window, geo.canvas_h,
+                        geo.canvas_w).numpy()
+    _bar(_diff(got, np.asarray(want)), "feather")
+    assert got[:, :40].mean() < right[:, :40].mean() - 5
+
+
+def test_multiband_keeps_true_black_content(jax_blend_stitchers):
+    """tests/test_pipeline.py:229-284's scenario: true-black content only
+    in the right image, where it is the deeper feather side, blends to
+    (0, 0, 0) inside covered area. The paste must keep it black (covered
+    black is nudged to B=1), not show the bright left base through."""
+    left, right = translated_pair()
+    right = right.copy()
+    right[40:80, 56:80] = 0
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_blend_stitchers["multiband", False]
+                          .stitch_pair_fast(jnp.asarray(left),
+                                            jnp.asarray(right),
+                                            _assume_tpu=True))
+    got = _port_stitcher(_configs("multiband", False)[1]).stitch_pair_fast(
+        left, right).numpy()
+    # The two estimates differ by ulps here, and the canvas is ceil() of
+    # the warped extent: it may take one more column on one side.
+    assert all(abs(a - b) <= 1 for a, b in zip(got.shape, want.shape))
+    hh, ww = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
+    got, want = got[:hh, :ww], want[:hh, :ww]
+    d = _diff(got, want)
+    mask = np.zeros(want.shape[:2], bool)
+    mask[42:78, 58:78] = True
+    mask &= want.max(-1) <= 1
+    assert mask.sum() > 200, mask.sum()  # the scenario actually happened
+    assert got[mask].max() <= 10, (got[mask].max(-1) > 10).sum()
+    _bar(d, "multiband")
+
+
+# --- the staged path ---------------------------------------------------------
+
+STAGES = ("Harris Corner Detection", "Harris Corner Matching",
+          "RANSAC Homography Estimation", "Image Stitching")
+
+
+def test_staged_stitch_pair_prints_stage_lines(capsys):
+    """print_timing=True: the four stage lines in the reference's format
+    (tests/test_pipeline.py:354-360's regex), and the staged panorama
+    within the bar of JAX's staged stitch_pair (same f64 geometry)."""
+    left, right = translated_pair()
+    jc, tc = _configs("feather", False)
+    TT.reset_stage_records()
+    got = _port_stitcher(tc, print_timing=True).stitch_pair(left, right)
+    out = capsys.readouterr().out
+    for label in STAGES:
+        assert re.search(rf"^{label}: \d+\.\d{{3}} ms$", out, re.M), label
+    assert [r["stage"] for r in TT.STAGE_RECORDS] == [
+        STAGES[0], STAGES[0], *STAGES[1:]]
+    want = np.asarray(JP.PairStitcher(jc, print_timing=False).stitch_pair(
+        jnp.asarray(left), jnp.asarray(right)))
+    _bar(_diff(got.numpy(), want), "feather")
+
+
+def test_timing_tag_and_memoized_stitcher(capsys):
+    st = TP.get_pair_stitcher(PORT_SMALL, True, "GPU", "cpu")
+    assert st is TP.get_pair_stitcher(PORT_SMALL, True, "GPU", "cpu")
+    assert st is not TP.get_pair_stitcher(PORT_SMALL, False, "GPU", "cpu")
+    left, _ = translated_pair()
+    st.detect(torch.from_numpy(left))
+    assert re.fullmatch(r"Harris Corner Detection \(GPU\): \d+\.\d{3} ms\n",
+                        capsys.readouterr().out)
+
+
+def test_stage_context_prints_one_line(capsys):
+    with TT.stage("Saving panorama", block_on=[torch.zeros(3)]) as out:
+        out.append(torch.ones(2))
+    with TT.stage("Hidden", enabled=False):
+        pass
+    assert re.fullmatch(r"Saving panorama: \d+\.\d{3} ms\n",
+                        capsys.readouterr().out)

@@ -1,11 +1,15 @@
-"""pano_tpu_torch fused warp + overlay (K4a's plain version) vs the JAX
-package's exact XLA warp and its Pallas kernel in interpret mode."""
+"""pano_tpu_torch warps and blends vs the JAX package on the CPU: the
+fused warp + overlay (K4a's plain version) and the windowed warp (K4b's
+plain version) against the exact XLA warp and the Pallas kernels in
+interpret mode, and warp_and_blend / blend_window_outputs with every
+blend and gain against their XLA counterparts."""
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 from jax.experimental.pallas import tpu as pltpu  # noqa: E402
 
@@ -131,5 +135,170 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_warp.warp_compose_overlay(meta, np.eye(3), meta, 0, 0,
                                        (0, 0, 8, 8), 8, 8)
-    with pytest.raises(NotImplementedError):
-        TW.warp_and_blend(img, img, np.eye(3), 0, 0, 8, 8, "feather")
+    with pytest.raises(ValueError, match="unknown blend"):
+        TW.warp_and_blend(img, img, np.eye(3), 0, 0, 8, 8, "nope")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_warp.warp_packed(meta, np.eye(3), (0, 0, 8, 8))
+
+
+# --- K4b: the windowed warp (warp_packed) ----------------------------------
+
+
+def _port_packed(img, m_inv, window, **kw):
+    rgb, w = cuda_warp.warp_packed(torch.from_numpy(img), m_inv, window, **kw)
+    return rgb.numpy(), None if w is None else w.numpy()
+
+
+@pytest.mark.parametrize("shift", [(17.0, 6.0), (17.5, 6.25), (-3.5, 0.0)])
+def test_warp_packed_rgb_matches_warp_perspective_u8(images, shift):
+    """Translations: the window's RGB equals JAX warp_perspective_u8
+    exactly (and so does the port's own warp_perspective_u8)."""
+    _, right = images
+    m = np.eye(3)
+    m[0, 2], m[1, 2] = shift
+    m_inv = np.linalg.inv(m)
+    want = np.asarray(JW.warp_perspective_u8(
+        jnp.asarray(right), jnp.asarray(m_inv, jnp.float32), 230, 330))
+    got, _ = _port_packed(right, m_inv, (0, 0, 230, 330))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(
+        TW.warp_perspective_u8(torch.from_numpy(right), m_inv, 230,
+                               330).numpy(), want)
+
+
+def test_warp_packed_window_offset_and_projective(images):
+    """A window at an unaligned canvas origin samples the canvas pixels it
+    covers: the same values as the full warp there; projective maps
+    round within 1 of the XLA warp."""
+    _, right = images
+    m_inv = np.linalg.inv(PROJECTIVE)
+    full = np.asarray(JW.warp_perspective_u8(
+        jnp.asarray(right), jnp.asarray(m_inv, jnp.float32), 240, 340))
+    got, _ = _port_packed(right, m_inv, (13, 29, 201, 317))
+    d = np.abs(got.astype(int) - full[13:201, 29:317].astype(int))
+    assert d.max() <= 1 and (d != 0).mean() < 1e-3, (d.max(), (d != 0).mean())
+
+
+def test_warp_packed_alpha_weight_matches_pallas(images):
+    """has_alpha: the 7-bit ramp alpha, sampled; within 0.02 of the JAX
+    kernel's weight (tests/test_pallas_warp.py:81-89)."""
+    _, right = images
+    hr, wr = right.shape[:2]
+    packed = PW.pack_bgra(jnp.asarray(right), JW._edge_ramp(hr, wr))
+    params = PW.make_params(np.eye(3), 0.0, 0.0, hr, wr)
+    with pltpu.force_tpu_interpret_mode():
+        _, want = PW.warp_packed(packed, params, 128, 256)
+    _, got = _port_packed(right, np.eye(3), (0, 0, 128, 256))
+    assert np.abs(got - np.asarray(want)).max() < 0.02
+    ramp = np.asarray(JW._edge_ramp(hr, wr))[:128, :256]
+    np.testing.assert_allclose(
+        got, np.clip(np.round(ramp * 127), 1, 127) / 127, atol=1e-6)
+
+
+@pytest.mark.parametrize("m", [TRANSLATION, PROJECTIVE],
+                         ids=["translation", "projective"])
+def test_warp_packed_weight_without_alpha(images, m):
+    """No alpha: the summed in-bounds bilinear weight, within 1e-5 of the
+    XLA sample's (tests/test_pallas_warp.py:132); emit_weight=False
+    returns None and the same RGB."""
+    _, right = images
+    m_inv = np.linalg.inv(m)
+    sx, sy = JW._inverse_map(jnp.asarray(m_inv, jnp.float32), 256, 512,
+                             jnp.asarray(0.0), jnp.asarray(0.0))
+    _, want = jax.jit(JW._bilinear_sample_u8)(jnp.asarray(right), sx, sy)
+    rgb, got = _port_packed(right, m_inv, (0, 0, 256, 512), has_alpha=False)
+    np.testing.assert_allclose(got, np.asarray(want), atol=1e-5)
+    rgb2, none = _port_packed(right, m_inv, (0, 0, 256, 512),
+                              emit_weight=False)
+    assert none is None
+    np.testing.assert_array_equal(rgb, rgb2)
+
+
+# --- warp_and_blend and blend_window_outputs, every blend -------------------
+
+BLENDS = [("overlay", True), ("feather", False), ("feather", True),
+          ("multiband", False), ("multiband", True)]
+
+
+def _check_blend(got, want, blend, win_px):
+    """f32 rounding moves a pixel by 1 at .5; in multiband it also flips
+    the seam mask at exact ties of the two weights (XLA divides by a
+    constant as a multiply by its reciprocal; the port divides), which
+    takes the other image's pixel."""
+    assert got.shape == want.shape
+    d = np.abs(got.astype(int) - want.astype(int)).max(-1)
+    if blend == "multiband":
+        assert (d > 1).sum() < 5e-3 * win_px, (d > 1).sum()
+        assert (d > 10).mean() < 0.02
+    else:
+        assert d.max() <= 1, d.max()
+        assert (d != 0).sum() < 1e-3 * win_px, (d != 0).sum()
+
+
+@pytest.mark.parametrize("blend,gain", BLENDS)
+@pytest.mark.parametrize("m", [TRANSLATION, PROJECTIVE],
+                         ids=["translation", "projective"])
+def test_warp_and_blend_matches_xla(images, m, blend, gain):
+    """The exact CPU counterpart of JAX warp_and_blend. The right image is
+    brightened by 1.2 so that gain engages."""
+    left, right = images
+    right = np.clip(right.astype(np.int32) * 1.2, 0, 255).astype(np.uint8)
+    out_h, out_w, ty, tx = 260, 420, 30, 190
+    wy0, wx0, win_h, win_w = 3, 5, 224, 384   # 16-multiples for multiband
+    m_inv = np.linalg.inv(m)
+    s = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
+    want = np.asarray(JW.warp_and_blend(
+        jnp.asarray(left), jnp.asarray(right),
+        jnp.asarray(m_inv, jnp.float32), s(tx), s(ty), out_h, out_w, blend,
+        win_x=s(wx0), win_y=s(wy0), win_h=win_h, win_w=win_w, gain=gain,
+    ))
+    got = TW.warp_and_blend(
+        torch.from_numpy(left), torch.from_numpy(right), m_inv, tx, ty,
+        out_h, out_w, blend, wx0, wy0, win_h, win_w, gain=gain,
+    ).numpy()
+    _check_blend(got, want, blend, win_h * win_w)
+
+
+@pytest.mark.parametrize("blend,gain",
+                         [("overlay", False)] + BLENDS)
+def test_blend_window_outputs_matches_xla(images, blend, gain):
+    """The epilogue over a warped window (K5's plain version), unaligned
+    placements, against JAX blend_window_outputs; the merged weight too."""
+    left, right = images
+    m_inv = np.linalg.inv(PROJECTIVE)
+    out_h, out_w, ty, tx = 270, 430, 21, 173
+    window = (7, 9, 7 + 224, 9 + 400)
+    rgb, w = cuda_warp.warp_packed(torch.from_numpy(right), m_inv, window)
+    rgb_np, w_np = rgb.numpy().astype(np.int32), w.numpy()
+    packed = rgb_np[..., 0] | (rgb_np[..., 1] << 8) | (rgb_np[..., 2] << 16)
+    s = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
+    want, want_w = JW.blend_window_outputs(
+        jnp.asarray(left), jnp.asarray(packed), jnp.asarray(w_np), s(tx),
+        s(ty), s(window[1]), s(window[0]), out_h, out_w, 224, 400, blend,
+        gain=gain,
+    )
+    got, got_w = TW.blend_window_outputs(
+        torch.from_numpy(left), rgb, w, tx, ty, window[1], window[0], out_h,
+        out_w, blend, gain=gain,
+    )
+    _check_blend(got.numpy(), np.asarray(want), blend, 224 * 400)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=1e-6)
+
+
+@pytest.mark.parametrize("args", [
+    ((310, 420), (300, 640), 128, 1, None, None),
+    ((310, 420), (384, 768), 128, 128, 256, 256),
+    ((3117, 4156), (3200, 5632), 1, 1, None, None),
+    ((200, 300), (256, 512), 64, 64, 256, 256),
+])
+def test_warp_window_geometry_matches_jax(args):
+    (img_h, img_w), (pad_h, pad_w), bucket, align, bucket_w, align_x = args
+    for m in (np.array([[0.98, 0.01, 310.5], [-0.02, 1.01, 22.25],
+                        [1e-5, 2e-5, 1.0]]),
+              np.array([[1.0, 0.0, 1400.0], [0.0, 1.0, 37.0],
+                        [0.0, 0.0, 1.0]])):
+        want = JW.warp_window_geometry(m, img_h, img_w, pad_h, pad_w, bucket,
+                                       align, bucket_w, align_x)
+        got = TW.warp_window_geometry(m, img_h, img_w, pad_h, pad_w, bucket,
+                                      align, bucket_w, align_x)
+        assert got == want
