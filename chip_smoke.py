@@ -33,9 +33,9 @@ non-zero and the last line is not printed:
 6. feather path: the same with blend="feather" (K4b x1, K5 x1, K4a x0),
    the same checks, median of 5 and peak memory.
 7. multiband and feather+gain: one call each, launch counts, the overlap
-   against the left image (+-1 with gain; multiband: +-4 with |d| > 1 on
-   < 0.1 %, see the phase's comment, and +-2 for its f32 pyramid round
-   trip on the planted H itself) and the call's wall time.
+   against the left image (+-1 with gain, +-2 with multiband: its f32
+   pyramid round trip) and the call's wall time; multiband also on the
+   planted H itself.
 8. staged path: stitch_pair with print_timing=True and overlay, once: the
    four stage lines in the reference's format, and the panorama within
    +-1 of the fused one.
@@ -257,12 +257,10 @@ def overlap_diff(pano, left):
             - left[DY:H_IMG, DX:W_IMG].int()).abs().amax(-1)
 
 
-def overlap_stats(ov, inset=2) -> dict:
-    """Max |d| over the overlap and `inset` px in from its edges, and the
-    share of pixels off by more than 1."""
-    inner = ov[inset:ov.shape[0] - inset, inset:ov.shape[1] - inset]
-    return dict(max=int(ov.max()), max_inset=int(inner.max()),
-                share_gt1=float((ov > 1).float().mean()))
+def overlap_stats(ov) -> dict:
+    """Max |d| over the overlap, and the share of pixels off by more
+    than 1."""
+    return dict(max=int(ov.max()), share_gt1=float((ov > 1).float().mean()))
 
 
 def warm_walls(torch, stitcher, left, right, first, reps=5):
@@ -414,7 +412,10 @@ def main() -> None:
     for name, a, b in zip(("best", "idx", "second", "col_best"), got, want):
         check(torch.equal(a, b), f"K3 {name} differs from the plain version")
     fin = torch.isfinite(want[0]) & torch.isfinite(got[0])
-    k3_ops = 2 * desc_r.shape[0] * desc_l.shape[0] * desc_r.shape[1]
+    # Only p*p*3 = 75 of the 128 descriptor columns carry data (K2 writes
+    # zeros in the rest); the function's work is over those 75. The kernel
+    # still spends time on the zero columns.
+    k3_ops = 2 * desc_r.shape[0] * desc_l.shape[0] * p * p * 3
     k3_bytes = nbytes(desc_r, bv_r, desc_l, bv_l, *got)
     res["K3"] = dict(
         max_abs_err=float((got[0][fin] - want[0][fin]).abs().max())
@@ -564,16 +565,10 @@ def main() -> None:
     log("stages feather", **stage_breakdown(torch, feather, left, right))
     del pano_f
 
-    # 7. multiband and feather + gain, one call each, and multiband's f32
-    # pyramid round trip on the planted H itself: the warped right then
-    # equals the left, so the blend must give the left back within +-2.
-    # Through the estimate (a few thousandths of a pixel off) the warped
-    # right differs from the left by 1 at sparse pixels, and where the
-    # seam mask changes between pyramid levels such differences add up:
-    # that path's overlap is held to +-4 with |d| > 1 on < 0.1 % of it,
-    # 2 px in from its edges (there the right image's sub-pixel fringe, a
-    # positive weight on a pixel that rounds to black, meets the left
-    # image's edge), and its numbers are printed.
+    # 7. multiband and feather + gain, one call each. The pair is one
+    # scene, so every blend gives the left image back over the overlap:
+    # within +-1 with gain, within +-2 with multiband (its f32 pyramid
+    # round trip), through the estimate and on the planted H itself.
     for tag, blend, gain in (("multiband", "multiband", False),
                              ("feather+gain", "feather", True)):
         st = stitch_config(blend, gain)
@@ -588,8 +583,7 @@ def main() -> None:
             overlap=stats, call_ms=round(wall, 3), launches=launches_x,
             peak_mem_mib=round(peak, 1))
         if blend == "multiband":
-            check(stats["max_inset"] <= 4 and stats["share_gt1"] < 1e-3,
-                  f"multiband overlap {stats}")
+            check(stats["max"] <= 2, f"multiband overlap {stats}")
             row = np.zeros(14, np.float32)
             row[:9] = h_plant.ravel()
             geo = fused_canvas_geometry(row, left.shape[:2], right.shape[:2])

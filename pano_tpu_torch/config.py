@@ -5,9 +5,10 @@ dataclasses, field names and defaults, so a configuration written for the
 JAX package means the same thing here. It is a copy and not an import
 because importing ``pano_tpu`` pulls in JAX.
 
-The ``use_pallas_*`` fields keep their names. In this package they select
-the hand-written Hopper kernel for the same stage (``pano_tpu_torch/csrc``);
-with a flag off, that stage runs its plain PyTorch version.
+The JAX package's ``use_pallas_*`` switches have no counterpart here
+(``config_from_reference`` drops them): every stage launches its
+hand-written Hopper kernel (``pano_tpu_torch/csrc``) on CUDA tensors and
+runs its plain PyTorch version only on CPU tensors.
 
 The system carries no weights; the only state that crosses from the JAX
 package is its configuration, which ``config_from_reference`` converts.
@@ -39,11 +40,6 @@ class HarrisOptions:
     match_block: int = 0            # kept for config parity: the matcher
     #                                 always streams (kernel) or runs dense
     #                                 (plain version)
-    use_pallas_scores: bool = True  # Harris-scores kernel (csrc/harris.cu)
-    use_pallas_gather: bool = True  # descriptor-gather kernel
-    #                                 (csrc/gather.cu)
-    use_pallas_match: bool = True   # streaming matcher kernel
-    #                                 (csrc/match.cu)
 
     def __post_init__(self):
         if self.nms_neighborhood % 2 != 1:
@@ -81,8 +77,6 @@ class StitchOptions:
     canvas_bucket: int = 128        # kept for config parity: the port
     #                                 allocates the exact canvas
     interpolation: str = "bilinear"  # warp sampling
-    use_pallas_warp: bool = True    # the warp and compose kernels
-    #                                 (csrc/warp.cu, csrc/compose.cu)
     gain_compensation: bool = False  # scalar exposure gain over the
     #                                  overlap, applied to the warped
     #                                  right image (any blend)

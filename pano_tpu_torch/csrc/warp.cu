@@ -15,10 +15,13 @@
 // in _warp_batched_call). Each pixel of a (win_h, win_w) window at canvas
 // origin (wy0, wx0) takes the same sample and writes it as 3 u8 channels,
 // plus an f32 weight: with has_alpha, the same bilinear sample of the
-// alpha plane clip(rint(_edge_ramp(hr, wr) * 127), 1, 127) / 127, whose
-// value at each tap is computed here from the tap's integer coordinates
-// (the plane is never stored); without it, the summed in-bounds bilinear
-// weight. emit_weight=0 skips the weight store.
+// alpha plane clip(rint(_edge_ramp(hr, wr) * 127), 1, 127), whose value at
+// each tap is computed here from the tap's integer coordinates (the plane
+// is never stored), rounded back to the 7-bit grid and divided by 127, as
+// the TPU kernel's packed alpha byte is: a sub-pixel fringe where less than
+// half a tap lands on the image weighs 0, not a sliver; without has_alpha,
+// the summed in-bounds bilinear weight. emit_weight=0 skips the weight
+// store.
 //
 // Both are the exact single-pass bilinear, not the TPU kernel's two-pass
 // SWAR approximation over a packed BGRA plane, so there is no scale or
@@ -159,7 +162,7 @@ warp_packed_kernel(const uint8_t* __restrict__ right,
   for (int c = 0; c < 3; ++c)
     rgb[o * 3 + c] =
         static_cast<uint8_t>(fminf(fmaxf(rintf(acc[c]), 0.0f), 255.0f));
-  if (weight != nullptr) weight[o] = has_alpha ? asum / 127.0f : wsum;
+  if (weight != nullptr) weight[o] = has_alpha ? rintf(asum) / 127.0f : wsum;
 }
 
 }  // namespace

@@ -59,11 +59,10 @@ def compose_canvas_plain(
     """The plain version: blend_window_outputs over the same canvas."""
     _check_args(left, win_rgb, w_win, window, out_h, out_w, blend)
     wy0, wx0 = window[:2]
-    canvas, _ = warp_ops.blend_window_outputs(
+    return warp_ops.blend_window_outputs(
         left, win_rgb, w_win if blend == "feather" else None, tx, ty, wx0,
         wy0, out_h, out_w, blend,
     )
-    return canvas
 
 
 def compose_canvas(

@@ -7,7 +7,8 @@ on an H100 and what its design does about it is noted at the top of
 and writes only the quarter-size folded score map.
 
 ``harris_scores`` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor; any other device raises.
+launches the kernel for a CUDA tensor (3x3 NMS only: another window
+raises there); any other device raises.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ def harris_scores_plain(
 
 
 def harris_scores(
-    img_u8: torch.Tensor, k: float, nms_thresh: float
+    img_u8: torch.Tensor, k: float, nms_thresh: float, neighborhood: int = 3,
 ) -> torch.Tensor:
-    """Block-folded Harris scores of an (H, W, 3) u8 BGR image (3x3 NMS)."""
+    """Block-folded Harris scores of an (H, W, 3) u8 BGR image, NMS over a
+    `neighborhood` x `neighborhood` window."""
     if img_u8.dtype != torch.uint8 or img_u8.dim() != 3 \
             or img_u8.shape[2] != 3:
         raise ValueError(
@@ -67,9 +69,14 @@ def harris_scores(
             f"{tuple(img_u8.shape)} {img_u8.dtype}"
         )
     if img_u8.device.type == "cpu":
-        return harris_scores_plain(img_u8, k, nms_thresh)
+        return harris_scores_plain(img_u8, k, nms_thresh, neighborhood)
     if img_u8.device.type != "cuda":
         raise ValueError(f"harris_scores: unsupported device {img_u8.device}")
+    if neighborhood != 3:
+        raise NotImplementedError(
+            f"harris_scores: the kernel implements 3x3 NMS, not "
+            f"{neighborhood}x{neighborhood}"
+        )
     if not img_u8.is_contiguous():
         raise ValueError("harris_scores: image must be contiguous")
     h, w = img_u8.shape[:2]

@@ -12,8 +12,10 @@ K4b replaces ``pano_tpu/ops/pallas_warp.py::warp_packed``: the same
 sample written to a window of its own, (h, w, 3) u8, plus an f32 weight,
 which the feather, multiband and gain blends read (``ops/cuda_compose.py``
 then composes the canvas). With ``has_alpha`` the weight is the bilinear
-sample of the 7-bit alpha plane clip(round(_edge_ramp * 127), 1, 127) / 127
-that the JAX package packs beside the pixels; without it, the summed
+sample of the 7-bit alpha plane clip(round(_edge_ramp * 127), 1, 127) that
+the JAX package packs beside the pixels, rounded back to 7 bits and
+divided by 127, as the TPU kernel's alpha byte is (a sub-pixel fringe with
+less than half a tap on the image weighs 0); without it, the summed
 in-bounds bilinear weight. Its plain version is ``_inverse_map`` +
 ``_bilinear_sample_u8`` on the image and on that alpha plane.
 
@@ -112,7 +114,8 @@ def warp_packed_plain(
     emit_weight: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The plain version of K4b: `_inverse_map` and `_bilinear_sample_u8`
-    on the image and, with `has_alpha`, on the 7-bit ramp alpha plane."""
+    on the image and, with `has_alpha`, on the 7-bit ramp alpha plane, the
+    sample rounded to 7 bits."""
     wy0, wx0, wy1, wx1 = window
     sx, sy = warp_ops._inverse_map(m_inv, wy1 - wy0, wx1 - wx0, wx0, wy0,
                                    right.device)
@@ -128,7 +131,7 @@ def warp_packed_plain(
     a_f, _ = warp_ops._bilinear_sample_u8(
         alpha.to(torch.uint8)[..., None], sx, sy
     )
-    return rgb, warp_ops.true_div(a_f[..., 0], 127.0)
+    return rgb, warp_ops.true_div(torch.round(a_f[..., 0]), 127.0)
 
 
 def warp_packed(

@@ -1,8 +1,8 @@
 """Harris corner detection: score map -> 2x2 block fold -> exact top-K.
 
 Counterpart of ``pano_tpu/ops/harris.py``. The score map comes from kernel
-K1 (``ops/cuda_harris.py``) or, with ``use_pallas_scores`` off or an NMS
-window other than 3, from the plain chain below. Both give the block-folded
+K1 (``ops/cuda_harris.py``; 3x3 NMS only) or, on CPU tensors, from its
+plain version, which takes any NMS window. Both give the block-folded
 ``(ceil(h/2), ceil(w/2))`` map whose peaks carry their in-block offset in
 the two mantissa LSBs, so the decode after top-K needs no gathers.
 
@@ -118,12 +118,8 @@ def harris_detect(img_u8: torch.Tensor, opts: HarrisOptions) -> KeyPoints:
     # it is imported here rather than at the top.
     from pano_tpu_torch.ops import cuda_harris
 
-    if opts.use_pallas_scores and opts.nms_neighborhood == 3:
-        bmax = cuda_harris.harris_scores(img_u8, opts.k, opts.nms_thresh)
-    else:
-        bmax = cuda_harris.harris_scores_plain(
-            img_u8, opts.k, opts.nms_thresh, opts.nms_neighborhood
-        )
+    bmax = cuda_harris.harris_scores(img_u8, opts.k, opts.nms_thresh,
+                                     opts.nms_neighborhood)
     h2, w2 = bmax.shape
 
     k_cap = min(opts.max_keypoints, h2 * w2)

@@ -37,13 +37,11 @@ class Matches(NamedTuple):
 
 def extract_patch_descriptors(
     img_u8: torch.Tensor, kps: KeyPoints, patch_size: int,
-    use_kernel: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (desc (K, 128) float32, border_valid (K,) bool).
 
     Descriptors of invalid keypoints are zeros; border validity is the
-    reference's clip test. ``use_kernel`` False runs the plain version
-    on any device."""
+    reference's clip test."""
     h, w = img_u8.shape[:2]
     border = patch_size // 2
     x = kps.xy[:, 0]
@@ -52,11 +50,8 @@ def extract_patch_descriptors(
         (x >= border) & (y >= border) & (x + border < w) & (y + border < h)
         & kps.valid
     )
-    gather = (
-        cuda_gather.gather_patches if use_kernel
-        else cuda_gather.gather_patches_plain
-    )
-    desc = gather(img_u8, kps.xy.contiguous(), border_valid, patch_size)
+    desc = cuda_gather.gather_patches(img_u8, kps.xy.contiguous(),
+                                      border_valid, patch_size)
     return desc, border_valid
 
 
@@ -68,14 +63,12 @@ def match_descriptors(
     max_ssd_thresh: float,
     ratio_thresh: float = 0.0,
     cross_check: bool = False,
-    use_kernel: bool = True,
 ) -> Matches:
     """Brute-force argmin-SSD matching of query descriptors against train.
 
     Lowe ratio: reject if best >= ratio^2 * second-best (a missing second
     neighbour passes). Cross check: require a mutual nearest neighbour."""
-    cores = cuda_match.match_cores if use_kernel else cuda_match.match_cores_plain
-    best_ssd, best_idx, second, col_best = cores(
+    best_ssd, best_idx, second, col_best = cuda_match.match_cores(
         desc_q, valid_q, desc_t, valid_t
     )
     valid = (
@@ -104,16 +97,11 @@ def match_keypoints(
 ) -> Matches:
     """Descriptors for both sides, then argmin-SSD. ``q`` is the query
     side (the reference's keypointsL/image1), ``t`` the train side."""
-    desc_q, bq = extract_patch_descriptors(
-        img_q, kps_q, opts.patch_size, use_kernel=opts.use_pallas_gather
-    )
-    desc_t, bt = extract_patch_descriptors(
-        img_t, kps_t, opts.patch_size, use_kernel=opts.use_pallas_gather
-    )
+    desc_q, bq = extract_patch_descriptors(img_q, kps_q, opts.patch_size)
+    desc_t, bt = extract_patch_descriptors(img_t, kps_t, opts.patch_size)
     return match_descriptors(
         desc_q, bq, desc_t, bt, opts.max_ssd_thresh,
         ratio_thresh=opts.ratio_thresh, cross_check=opts.cross_check,
-        use_kernel=opts.use_pallas_match,
     )
 
 

@@ -4,7 +4,7 @@ Counterpart of ``pano_tpu/ops/warp.py`` for the pair stitch: host-side
 canvas and window geometry, the inverse map and the bilinear u8 sample
 with a zero border, the feather weights (``_edge_ramp``), the exposure
 gain, the multiband window composite, ``blend_window_outputs`` (the
-epilogue over a warped window; the plain version of kernel K5,
+pair epilogue over a warped window; the plain version of kernel K5,
 ``ops/cuda_compose.py``) and ``warp_and_blend`` with the overlay,
 feather and multiband blends and gain, the exact counterpart of the JAX
 function of that name (with the overlay blend, the plain version of
@@ -68,54 +68,6 @@ def warp_window(
     wx1 = min(canvas_w, int(np.ceil(canvas_corners[:, 0].max())) + 2)
     wy1 = min(canvas_h, int(np.ceil(canvas_corners[:, 1].max())) + 2)
     return wy0, wx0, max(wy0, wy1), max(wx0, wx1)
-
-
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
-
-
-def warp_window_geometry(
-    m: np.ndarray,
-    img_h: int,
-    img_w: int,
-    pad_h: int,
-    pad_w: int,
-    bucket: int,
-    align: int = 1,
-    bucket_w: "int | None" = None,
-    align_x: "int | None" = None,
-) -> Tuple[int, int, int, int]:
-    """The bucketed bbox of the image corners warped by `m`, +2 px
-    bilinear margin, clipped to the (pad_h, pad_w) canvas, with its
-    origin aligned down to `align` (`align_x` for x) and its width
-    bucketed to `bucket_w` when given. The staged composite calls it
-    with bucket 1 and no alignment: the exact window.
-
-    Returns (wx0, wy0, win_w, win_h)."""
-    if align_x is None:
-        align_x = align
-    assert pad_h % align == 0 and bucket % align == 0, (
-        f"pad/bucket must be multiples of align={align}: {(pad_h, bucket)}"
-    )
-    assert pad_w % align_x == 0 and (
-        bucket if bucket_w is None else bucket_w
-    ) % align_x == 0, (
-        f"pad_w/width bucket must be multiples of align_x={align_x}: "
-        f"{(pad_w, bucket, bucket_w)}"
-    )
-    corners = warp_corners(m, img_h, img_w)
-    wx0 = max(0, (int(np.floor(corners[:, 0].min())) - 2) & ~(align_x - 1))
-    wy0 = max(0, (int(np.floor(corners[:, 1].min())) - 2) & ~(align - 1))
-    wx1 = min(pad_w, int(np.ceil(corners[:, 0].max())) + 2)
-    wy1 = min(pad_h, int(np.ceil(corners[:, 1].max())) + 2)
-    win_w = min(
-        _round_up(max(wx1 - wx0, 1), bucket if bucket_w is None else bucket_w),
-        pad_w,
-    )
-    win_h = min(_round_up(max(wy1 - wy0, 1), bucket), pad_h)
-    wx0 = min(wx0, pad_w - win_w)
-    wy0 = min(wy0, pad_h - win_h)
-    return wx0, wy0, win_w, win_h
 
 
 def _m_floats(h_inv) -> list:
@@ -186,8 +138,6 @@ def _place(canvas: torch.Tensor, img: torch.Tensor, ty: int, tx: int):
     y1, x1 = min(ty + h, ch), min(tx + w, cw)
     if y1 > y0 and x1 > x0:
         canvas[y0:y1, x0:x1] = img[y0 - ty:y1 - ty, x0 - tx:x1 - tx]
-
-
 
 
 BLENDS = ("overlay", "feather", "multiband")
@@ -360,54 +310,37 @@ def blend_window_outputs(
     out_h: int,
     out_w: int,
     blend: str = "overlay",
-    w_left_win: "torch.Tensor | None" = None,
-    gain: bool = False,
-) -> Tuple[torch.Tensor, "torch.Tensor | None"]:
-    """Composite a warped window with the translated left image.
+) -> torch.Tensor:
+    """The (out_h, out_w, 3) u8 canvas: `left` placed at (tx, ty), and the
+    warped window composited at (win_x, win_y) against the left image's
+    edge ramp masked by non-black coverage. `w_win` may be None for the
+    overlay blend, which never reads it.
 
-    `w_left_win` is the left side's coverage weight over the window; when
-    absent (pair mode) it is the left image's edge ramp masked by
-    non-black coverage. A `left` of the canvas's own size is the canvas
-    itself (chain mode), placed at (0, 0). `w_win` may be None for the
-    overlay blend without gain, which never reads it.
-
-    Returns (canvas, new_w_left_win): the (out_h, out_w, 3) u8 canvas and
-    the window's merged coverage weight max(w_left_win, w_win) (None
-    without `w_win`)."""
+    The JAX function's chain mode (a canvas-sized `left` with its own
+    coverage weight, and the merged weight it returns) and its gain serve
+    the multi-image chain and are not ported yet; the pair's gain runs in
+    ``PairStitcher._window_context``."""
     _check_blend(blend)
     win_h, win_w = rgb_win.shape[:2]
     _check_window(win_x, win_y, win_h, win_w, out_h, out_w)
-    if tuple(left.shape[:2]) == (out_h, out_w):
-        ty = tx = 0
     hl, wl = left.shape[:2]
     window = (win_y, win_x, win_y + win_h, win_x + win_w)
     canvas = left.new_zeros((out_h, out_w, 3))
     _place(canvas, left, ty, tx)
     left_win = canvas[win_y:win_y + win_h, win_x:win_x + win_w]
-    if w_left_win is None:
-        w_left_win = left_weight_window(left_win, hl, wl, ty, tx, window)
-
-    warped_right = rgb_win
-    if gain:
-        # Exposure compensation without a host sync: the scalar gain
-        # stays on the device and flows straight into the blend.
-        overlap = (w_left_win > 0.05) & (w_win > 0.05)
-        g = _estimate_gain(left_win.float(), rgb_win.float(), overlap)
-        warped_right = _to_u8(rgb_win.float() * g)
+    w_left_win = left_weight_window(left_win, hl, wl, ty, tx, window)
 
     if blend == "overlay":
         right_nonblack = rgb_win.ne(0).any(-1, keepdim=True)
-        win_out = torch.where(right_nonblack, warped_right, left_win)
+        win_out = torch.where(right_nonblack, rgb_win, left_win)
     elif blend == "feather":
-        win_out = _feather(left_win.float(), warped_right.float(),
-                           w_left_win, w_win, w_win > 0.0)
+        win_out = _feather(left_win.float(), rgb_win.float(), w_left_win,
+                           w_win, w_win > 0.0)
     else:
-        win_out = _multiband_compose(left_win.float(), warped_right.float(),
+        win_out = _multiband_compose(left_win.float(), rgb_win.float(),
                                      w_left_win, w_win)
-
-    new_w = None if w_win is None else torch.maximum(w_left_win, w_win)
     canvas[win_y:win_y + win_h, win_x:win_x + win_w] = win_out
-    return canvas, new_w
+    return canvas
 
 
 def warp_and_blend(

@@ -8,13 +8,15 @@ strings, so the format is an API, not logging.
 CUDA work is asynchronous: a stage that launched kernels synchronizes its
 device before the clock stops (``synchronize``), where the JAX package
 called ``force_sync``. On the CPU there is nothing to wait for.
+
+The JAX module's ``stage`` context, ``STAGE_RECORDS`` and
+``reset_stage_records`` serve its CLI's ``--json`` output; they come with
+the CLI's port.
 """
 
 from __future__ import annotations
 
-import contextlib
 import time
-from typing import Optional
 
 import torch
 
@@ -35,37 +37,7 @@ class Timer:
     def elapsed(self) -> float:
         return (time.perf_counter() - self._start) * 1e3
 
-    def reset(self) -> None:
-        self._start = time.perf_counter()
-
-
-# Machine-readable stage record, appended by every print_stage call.
-STAGE_RECORDS: list = []
-
-
-def reset_stage_records() -> None:
-    STAGE_RECORDS.clear()
-
 
 def print_stage(name: str, ms: float) -> None:
     # Exact reference format: fixed, 3 decimals (src/serial/main.cpp:183).
-    STAGE_RECORDS.append({"stage": name, "ms": round(ms, 3)})
     print(f"{name}: {ms:.3f} ms", flush=True)
-
-
-@contextlib.contextmanager
-def stage(name: str, block_on: Optional[list] = None, enabled: bool = True):
-    """Time a stage; print the reference-format line on exit.
-
-    `block_on` is a mutable list the body may append tensors to; the
-    devices of the CUDA ones are synchronized before the clock stops, so
-    asynchronous launches don't make stages look free."""
-    t = Timer()
-    out = block_on if block_on is not None else []
-    try:
-        yield out
-    finally:
-        for dev in {x.device for x in out if isinstance(x, torch.Tensor)}:
-            synchronize(dev)
-        if enabled:
-            print_stage(name, t.elapsed())

@@ -54,6 +54,17 @@ def test_harris_detect_same_keypoints_on_gpu_and_cpu():
         assert torch.equal(a, b.cpu())
 
 
+def test_harris_kernel_refuses_other_nms_windows():
+    """The kernel implements 3x3 NMS; another window raises on the card
+    instead of running the plain version there."""
+    from pano_tpu_torch.config import HarrisOptions
+    from pano_tpu_torch.ops import harris
+
+    img = torch.from_numpy(_img((64, 80), 53)).cuda()
+    with pytest.raises(NotImplementedError, match="3x3"):
+        harris.harris_detect(img, HarrisOptions(nms_neighborhood=5))
+
+
 def test_gather_kernel_vs_plain():
     """Bit-identical, border keypoints and invalid rows included."""
     from pano_tpu_torch.ops import cuda_gather
