@@ -6,28 +6,35 @@ Run from the repository root on a machine with one CUDA GPU:
     python3 chip_smoke.py [--seed N]
 
 Phases, one line of numbers each; any failure raises, so the exit code is
-non-zero and the last line is not printed:
+non-zero and the last line is not printed. No phase catches its own
+failure.
 
 1. device: nvidia-smi name and power limit, torch and CUDA versions;
    no CUDA device -> exit 1.
 2. build: compiles pano_tpu_torch/csrc/*.cu with nvcc (sm_90a), one
    process per source, all started together.
-3. pair: a deterministic 4156x3117 textured pair from --seed; the right
-   image is the left one's scene shifted by (dx, dy) = (1400, 37), so
-   the right->left homography is that translation.
-4. kernels: each of the six kernels against its plain PyTorch version on
-   the card, at the main path's shapes, with the tolerances below; median
-   time of 10 runs (CUDA events, L2 flushed) beside the plain version's
-   and, where one PyTorch call computes the same function, that call's.
-   K4a, K4b and K5 run on the planted translation and on a mild
-   projective H; K4b with and without the ramp alpha, K5 with overlay
-   and feather.
+3. data: a deterministic 4156x3117 textured pair from --seed (the right
+   image is the left one's scene shifted by (dx, dy) = (1400, 37), so the
+   right->left homography is that translation), and a strip of four
+   4156x3117 crops of one 8356x3169 scene at the planted offsets
+   (0, 0), (1400, 37), (2800, 15), (4200, 52).
+4. kernels: each of the seven kernels against its plain PyTorch version
+   on the card, at the main path's shapes, with the tolerances below;
+   median time of 10 runs (CUDA events, L2 flushed) beside the plain
+   version's and, where one PyTorch call computes the same function,
+   that call's. K4a, K4b and K5 run on the planted pair translation and
+   on a mild projective H; K4b with and without the ramp alpha, K5 with
+   overlay and feather. K6 runs a step of the strip's chain (image 2 into
+   the canvas that holds image 1 and its weight ramp), planted and
+   projective, overlay exact and feather within 1, the weight canvas
+   exact; K6 updates in place, so each timed run starts from a fresh
+   copy made outside the timed region.
 5. main path (overlay): PairStitcher(DEFAULT_CONFIG, device="cuda")
    .stitch_pair_fast(left, right) with K = 8192 and 1000 hypotheses: the
    recovered H within 0.5 px of the planted one at the right image's
    corners, the canvas of the planted geometry, the overlap equal to the
    left image up to +-1, and each kernel launched by that call
-   (K1 x2, K2 x2, K3 x1, K4a x1, K4b x0, K5 x0); warm wall time on
+   (K1 x2, K2 x2, K3 x1, K4a x1, others x0); warm wall time on
    device-resident images (median of 5, synchronized on both sides) and
    peak device memory.
 6. feather path: the same with blend="feather" (K4b x1, K5 x1, K4a x0),
@@ -39,10 +46,33 @@ non-zero and the last line is not printed:
 8. staged path: stitch_pair with print_timing=True and overlay, once: the
    four stage lines in the reference's format, and the panorama within
    +-1 of the fused one.
+9. chain: stitch_all_images(strip, cfg, mode="chain", device="cuda") on
+   the device-resident strip for overlay, feather, multiband and
+   feather+gain: its printed lines, each recovered global within 0.5 px
+   of the planted one at its image's corners, the planted canvas (+-1
+   row or column), the panorama against the scene over covered pixels
+   (+-2; multiband +-3; the composed globals carry about three times a
+   pair's sub-pixel error onto sharp edges) with the share above +-1,
+   and the launches (K1 x6, K2 x6, K3 x3, K4b x3, K6 x3 for overlay and
+   feather and x0 for multiband and gain, K4a and K5 x0); the warm wall
+   time of overlay (median of 3) and peak memory, one call each for the
+   others. Then composite_global on the planted globals themselves:
+   overlay exact against the scene, feather +-1, multiband +-2.
+10. auto: the strip in the order [2, 0, 3, 1], overlay: the
+   "Auto-ordering" line places 4 of 4, the panorama against the scene
+   over covered pixels within +-2 (the root goes in at its truncated
+   offset, as in the JAX package), K1 x4, K2 x4, K3 x6; one call's wall
+   time.
+11. fold: mode="fold", timing="total", overlay, on the strip: the
+   "Stitching image i of 4..." and "Image Stitching" lines, the
+   panorama covering the planted canvas (+-2 px per step), K1 x6, K2 x6,
+   K3 x3, K4a x3; one call's wall time.
 
 The last three lines are the nvidia-smi line, a JSON object with the
 per-kernel numbers (each kernel's launches from the path that runs it:
-K1-K4a from phase 5, K4b and K5 from phase 6), and {"ok": true, ...}.
+K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
+overlay chain), and {"ok": true, ...}. The whole run takes about a
+minute of command time on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -59,6 +89,10 @@ import numpy as np
 
 H_IMG, W_IMG = 3117, 4156   # the mountain pair's size (bench.py)
 DX, DY = 1400, 37           # planted right -> left translation
+# The strip: each image's planted (x, y) offset in one scene.
+STRIP = ((0, 0), (1400, 37), (2800, 15), (4200, 52))
+AUTO_ORDER = (2, 0, 3, 1)   # the auto phase's shuffled input
+DEVICE = "cuda"             # where every phase runs
 
 # name, source, TPU kernel it replaces (file:line of its pallas_call)
 KERNELS = {
@@ -74,6 +108,8 @@ KERNELS = {
             "pano_tpu/ops/pallas_warp.py:870"),
     "K5": ("compose_canvas", "pano_tpu_torch/csrc/compose.cu",
            "pano_tpu/ops/pallas_compose.py:341"),
+    "K6": ("compose_chain_canvas", "pano_tpu_torch/csrc/compose.cu",
+           "pano_tpu/ops/pallas_compose.py:249"),
 }
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel could
@@ -95,10 +131,14 @@ ALPHA_OPS_PER_PX = 52
 # K5 feather: the left ramp 8, the total 2, per channel 2 products, a sum,
 #     a division, two selects, round and clip (8).
 FEATHER_OPS_PER_PX = 34
+# K6 feather: K5's without the left ramp (the weight is read), plus the
+#     max of the two weights.
+CHAIN_OPS_PER_PX = 27
 
 STAGE_LINE = re.compile(r"^(.+): (\d+\.\d{3}) ms$")
 STAGES = ("Harris Corner Detection", "Harris Corner Matching",
           "RANSAC Homography Estimation", "Image Stitching")
+TOTAL = "Total Stitching Process"
 
 
 def log(phase: str, **numbers) -> None:
@@ -136,20 +176,42 @@ def synthetic_pair(seed: int):
     return left, right
 
 
+def strip_shape():
+    return (H_IMG + max(y for _, y in STRIP), W_IMG + max(x for x, _ in STRIP))
+
+
+def synthetic_strip(seed: int):
+    """(scene, images): four crops of one scene at the STRIP offsets."""
+    scene = texture(*strip_shape(), seed)
+    return scene, [np.ascontiguousarray(scene[y:y + H_IMG, x:x + W_IMG])
+                   for x, y in STRIP]
+
+
+def translation(x: float, y: float) -> np.ndarray:
+    return np.array([[1.0, 0.0, x], [0.0, 1.0, y], [0.0, 0.0, 1.0]])
+
+
 class Timer:
     """Median device time of `reps` runs with CUDA events, the 50 MB L2
     overwritten before each run."""
 
     def __init__(self, torch):
         self.torch = torch
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
 
-    def __call__(self, fn, reps: int = 10, warmup: int = 2) -> float:
+    def __call__(self, fn, reps: int = 10, warmup: int = 2,
+                 setup=None) -> float:
+        """`setup`, when given, runs before each run, outside the timed
+        region (a kernel that updates its input in place re-primes it)."""
         torch = self.torch
         for _ in range(warmup):
+            if setup is not None:
+                setup()
             fn()
         times = []
         for _ in range(reps):
+            if setup is not None:
+                setup()
             self.flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -223,7 +285,7 @@ def stitch_once(torch, stitcher, left, right, mods, want_launches, tag):
     check(launches == want_launches,
           f"{tag}: kernel launches in one stitch_pair_fast: {launches}")
     check(pano is not None, f"{tag}: stitch_pair_fast returned None")
-    check(pano.is_cuda and pano.dtype == torch.uint8,
+    check(pano.device.type == DEVICE and pano.dtype == torch.uint8,
           f"{tag}: result {pano.device} {pano.dtype}")
     return pano, launches, wall
 
@@ -316,6 +378,137 @@ def stage_breakdown(torch, stitcher, left, right, reps=5) -> dict:
     return {k: round(float(np.median(v)), 3) for k, v in times.items()}
 
 
+@contextlib.contextmanager
+def recorded_globals(pipeline):
+    """Record the (globals, anchor) that each composite_global call of the
+    multi-image modes receives."""
+    seen = []
+    real = pipeline.composite_global
+
+    def spy(images, devs, globals_h, config, anchor=0, _weights_out=None):
+        seen.append(([None if g is None else np.array(g, np.float64)
+                      for g in globals_h], anchor))
+        return real(images, devs, globals_h, config, anchor, _weights_out)
+
+    pipeline.composite_global = spy
+    try:
+        yield seen
+    finally:
+        pipeline.composite_global = real
+
+
+def run_mode(torch, mods, want_launches, tag, fn):
+    """One multi-image call with every launch count zeroed just before it
+    and read just after, its stdout captured; checks the counts and the
+    result's type. Returns (panorama, stdout lines, launches, wall ms)."""
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        pano = fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    launches = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+    check(launches == want_launches, f"{tag}: kernel launches {launches}")
+    check(isinstance(pano, np.ndarray) and pano.dtype == np.uint8
+          and pano.ndim == 3, f"{tag}: result {type(pano)}")
+    return pano, buf.getvalue().splitlines(), launches, wall
+
+
+def check_lines(lines, want, tag):
+    """The printed lines: `want` with each stage line's time as x.xxx."""
+    got = [STAGE_LINE.sub(r"\1: x.xxx ms", line) for line in lines]
+    check(got == want, f"{tag}: printed lines {lines}")
+
+
+def globals_err(globals_h, offsets, anchor) -> float:
+    """Max distance (px) of each recovered global from the planted one
+    (the translation from its image's offset to the anchor's) at its
+    image's corners."""
+    corners = np.array([[0, 0], [W_IMG, 0], [W_IMG, H_IMG], [0, H_IMG]],
+                       np.float64)
+    ax, ay = offsets[anchor]
+    err = 0.0
+    for i, (g, (x, y)) in enumerate(zip(globals_h, offsets)):
+        check(g is not None, f"image {i} was left out")
+        ch = np.c_[corners, np.ones(4)] @ g.T
+        err = max(err, float(np.abs(ch[:, :2] / ch[:, 2:3]
+                                    - (corners + [x - ax, y - ay])).max()))
+    return err
+
+
+def scene_diff(pano, imgs, offsets, anchor, anchor_at):
+    """Per-pixel max |d| of the panorama against the images pasted at
+    their planted offsets (the scene itself), over the pixels they cover:
+    the anchor first at `anchor_at` = (ty, tx), its truncated placement,
+    then the others over it where they are not black (overlay lets the
+    canvas show through a (0, 0, 0) pixel, as the reference's does; the
+    other blends place the anchor exactly here, so it is the same scene
+    pixel beneath). Within the common extent of the two, and without the
+    2-px band across each warped image's edge: an estimate a few
+    thousandths of a pixel short of the planted offset samples the edge
+    pixel's sliver just outside it, and overlay writes that dark fringe
+    over the canvas (as the reference's does). Returns (|d| over the
+    compared pixels, the band's pixel count)."""
+    sh, sw = strip_shape()
+    h, w = min(pano.shape[0], sh), min(pano.shape[1], sw)
+    want = np.zeros((h, w, 3), np.int16)
+    covered = np.zeros((h, w), bool)
+    band = np.zeros((h, w), bool)
+    for i in [anchor] + [i for i in range(len(imgs)) if i != anchor]:
+        y0, x0 = anchor_at if i == anchor else offsets[i][::-1]
+        y1, x1 = min(y0 + H_IMG, h), min(x0 + W_IMG, w)
+        src = imgs[i][:y1 - y0, :x1 - x0]
+        if i == anchor:
+            want[y0:y1, x0:x1] = src
+        else:
+            nonblack = src.any(-1)
+            want[y0:y1, x0:x1][nonblack] = src[nonblack]
+        covered[y0:y1, x0:x1] = True
+        if i != anchor:
+            ya, xa = max(y0 - 1, 0), max(x0 - 1, 0)
+            for r in (y0, y0 + H_IMG):
+                band[max(r - 1, 0):r + 1, xa:x1 + 1] = True
+            for c in (x0, x0 + W_IMG):
+                band[ya:y1 + 1, max(c - 1, 0):c + 1] = True
+    d = np.abs(pano[:h, :w].astype(np.int16) - want).max(-1)
+    return d[covered & ~band], int((covered & band).sum())
+
+
+def chain_breakdown(torch, pipeline, cfg, strip_np, strip, reps=3) -> dict:
+    """Median ms, over `reps` warm runs, of the chain's parts, serialized
+    (synchronize around each) through the calls stitch_all_images_chain
+    makes: the adjacent estimates with their one host copy, the global
+    composite on those globals (its panorama's host copy included), and
+    that host copy alone."""
+    stitcher = pipeline.get_pair_stitcher(cfg, True, "", DEVICE, None)
+    times = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    for _ in range(reps):
+        rows = timed("estimates", lambda: pipeline._host_fetch(torch.stack(
+            [stitcher._fused_estimate_impl(strip[i - 1], strip[i])[0]
+             for i in range(1, len(strip))])))
+        gs = [np.eye(3)]
+        for row in rows:
+            gs.append(gs[-1] @ row[:9].reshape(3, 3).astype(np.float64))
+        timed("composite", lambda: pipeline.composite_global(
+            strip_np, strip, gs, cfg))
+        canvas = torch.empty(strip_shape() + (3,), dtype=torch.uint8,
+                             device=DEVICE)
+        timed("panorama_host_copy", lambda: pipeline._host_fetch(canvas))
+    return {k: round(float(np.median(v)), 3) for k, v in times.items()}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -355,14 +548,16 @@ def main() -> None:
     from pano_tpu_torch.ops import warp as warp_ops
     from pano_tpu_torch.pipeline import fused_canvas_geometry
 
-    # 3. the synthetic pair
+    # 3. the synthetic pair and strip
     t0 = time.perf_counter()
     left_np, right_np = synthetic_pair(args.seed)
-    left = torch.from_numpy(left_np).cuda()
-    right = torch.from_numpy(right_np).cuda()
+    left = torch.from_numpy(left_np).to(DEVICE)
+    right = torch.from_numpy(right_np).to(DEVICE)
+    scene, strip_np = synthetic_strip(args.seed)
+    strip = [torch.from_numpy(im).to(DEVICE) for im in strip_np]
     torch.cuda.synchronize()
-    log("pair", shape=left_np.shape, dx=DX, dy=DY,
-        seconds=round(time.perf_counter() - t0, 3))
+    log("data", pair=left_np.shape, dx=DX, dy=DY, strip_scene=scene.shape,
+        strip_offsets=STRIP, seconds=round(time.perf_counter() - t0, 3))
 
     # 4. each kernel against its plain version, at the main path's shapes
     timer = Timer(torch)
@@ -512,27 +707,81 @@ def main() -> None:
                 bound=bound(nbytes(left, rgb, w, got),
                             win_px * FEATHER_OPS_PER_PX),
             )
-    for k in ("K4a", "K4b", "K5"):
+    del got, want, desc_r, desc_l, rgb, w, rgb_p, w_p
+
+    # K6: a chain step of the strip, image 2 into the canvas that holds
+    # image 1 and its weight ramp, overlay (in-bounds weight) and feather
+    # (ramp alpha). K6 updates in place: every run starts from a copy.
+    sh, sw = strip_shape()
+    base_c = torch.zeros((sh, sw, 3), dtype=torch.uint8, device=DEVICE)
+    warp_ops._place(base_c, strip[0], 0, 0)
+    base_w = torch.zeros((sh, sw), dtype=torch.float32, device=DEVICE)
+    warp_ops._place(base_w, warp_ops._edge_ramp(H_IMG, W_IMG, DEVICE), 0, 0)
+    work = (base_c.clone(), base_w.clone())
+    ref = (base_c.clone(), base_w.clone())
+
+    def prime(bufs):
+        bufs[0].copy_(base_c)
+        bufs[1].copy_(base_w)
+
+    errs["K6"] = []
+    x1, y1 = STRIP[1]
+    for tag, m in (("planted", translation(x1, y1)),
+                   ("projective", translation(x1, y1) @ m_proj)):
+        window = warp_ops.warp_window(warp_ops.warp_corners(m, H_IMG, W_IMG),
+                                      sh, sw)
+        wy0, wx0, wy1, wx1 = window
+        win_px = (wy1 - wy0) * (wx1 - wx0)
+        for blend in ("overlay", "feather"):
+            rgb, w = cuda_warp.warp_packed(strip[1], np.linalg.inv(m), window,
+                                           has_alpha=blend == "feather")
+            cargs = (rgb, w, window, blend)
+            prime(work)
+            cuda_compose.compose_chain_canvas(*work, *cargs)
+            prime(ref)
+            cuda_compose.compose_chain_canvas_plain(*ref, *cargs)
+            d = int((work[0].int() - ref[0].int()).abs().max())
+            w_err = float((work[1] - ref[1]).abs().max())
+            check(d <= (0 if blend == "overlay" else 1),
+                  f"K6 {tag} {blend} max |d| {d}")
+            check(w_err == 0.0, f"K6 {tag} {blend} weight max |d| {w_err}")
+            errs["K6"].append(float(d))
+            log(f"K6 {tag}", blend=blend, canvas=(sh, sw), window=window,
+                max_abs_err=d, weight_max_abs_err=w_err)
+        if tag == "planted":  # the feather step
+            res["K6"] = dict(
+                ms=timer(lambda: cuda_compose.compose_chain_canvas(
+                    *work, *cargs), setup=lambda: prime(work)),
+                plain_ms=timer(lambda: cuda_compose.compose_chain_canvas_plain(
+                    *ref, *cargs), setup=lambda: prime(ref)),
+                library_ms=None,
+                # Canvas pixel and weight read and written, the window's
+                # pixel and weight read: 3 + 3 + 4 + 4 + 3 + 4 bytes.
+                bound=bound(win_px * 21, win_px * CHAIN_OPS_PER_PX),
+            )
+    for k in ("K4a", "K4b", "K5", "K6"):
         res[k]["max_abs_err"] = max(errs[k])
         log(f"{k} {KERNELS[k][0]}", **res[k])
-    del got, want, desc_r, desc_l, rgb, w, rgb_p, w_p
+    del rgb, w, work, ref, base_c, base_w
 
     mods = {"K1": (cuda_harris, "launches"), "K2": (cuda_gather, "launches"),
             "K3": (cuda_match, "launches"), "K4a": (cuda_warp, "launches"),
             "K4b": (cuda_warp, "packed_launches"),
-            "K5": (cuda_compose, "launches")}
-    front = {"K1": 2, "K2": 2, "K3": 1}
+            "K5": (cuda_compose, "launches"),
+            "K6": (cuda_compose, "chain_launches")}
+    none = dict.fromkeys(KERNELS, 0)
+    front = {**none, "K1": 2, "K2": 2, "K3": 1}
 
     def stitch_config(blend, gain=False):
         cfg = DEFAULT_CONFIG.replace(stitch=dataclasses.replace(
             DEFAULT_CONFIG.stitch, blend=blend, gain_compensation=gain))
-        return PairStitcher(cfg, print_timing=False, device="cuda")
+        return PairStitcher(cfg, print_timing=False, device=DEVICE)
 
     # 5. the main path (overlay), through the entry point a user calls
-    stitcher = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    stitcher = PairStitcher(DEFAULT_CONFIG, print_timing=False, device=DEVICE)
     pano, launches, first_ms = stitch_once(
         torch, stitcher, left, right, mods,
-        {**front, "K4a": 1, "K4b": 0, "K5": 0}, "overlay")
+        {**front, "K4a": 1}, "overlay")
     corner_err, ov = check_planted(stitcher, pano, left, "overlay")
     ov_max = int(ov.max())
     check(ov_max <= 1, f"overlay: overlap differs from the left by {ov_max}")
@@ -551,7 +800,7 @@ def main() -> None:
     feather = stitch_config("feather")
     pano_f, launches_f, first_ms = stitch_once(
         torch, feather, left, right, mods,
-        {**front, "K4a": 0, "K4b": 1, "K5": 1}, "feather")
+        {**front, "K4b": 1, "K5": 1}, "feather")
     corner_err, ov = check_planted(feather, pano_f, left, "feather")
     ov_max = int(ov.max())
     check(ov_max <= 1, f"feather: overlap differs from the left by {ov_max}")
@@ -575,7 +824,7 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats()
         out, launches_x, wall = stitch_once(
             torch, st, left, right, mods,
-            {**front, "K4a": 0, "K4b": 1, "K5": 1}, tag)
+            {**front, "K4b": 1, "K5": 1}, tag)
         peak = torch.cuda.max_memory_allocated() / 2**20
         corner_err, ov = check_planted(st, out, left, tag)
         stats = overlap_stats(ov)
@@ -597,7 +846,7 @@ def main() -> None:
             check(stats["max"] <= 1, f"{tag} overlap {stats}")
         del out
     # 8. the staged path with its stage lines (overlay)
-    staged = PairStitcher(DEFAULT_CONFIG, print_timing=True, device="cuda")
+    staged = PairStitcher(DEFAULT_CONFIG, print_timing=True, device=DEVICE)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         pano_s = staged.stitch_pair(left, right)
@@ -608,7 +857,8 @@ def main() -> None:
           f"staged stage lines: {lines}")
     for line in lines:
         print("  " + line, flush=True)
-    check(pano_s is not None and pano_s.is_cuda, "stitch_pair returned None")
+    check(pano_s is not None and pano_s.device.type == DEVICE,
+          "stitch_pair returned None")
     check(all(abs(a - b) <= 1 for a, b in zip(pano_s.shape, pano.shape)),
           f"staged canvas {tuple(pano_s.shape)} vs fused {tuple(pano.shape)}")
     hh, ww = min(pano_s.shape[0], pano.shape[0]), min(pano_s.shape[1],
@@ -617,10 +867,146 @@ def main() -> None:
     check(d_staged <= 1, f"staged vs fused panorama max |d| {d_staged}")
     log("staged path", canvas=tuple(pano_s.shape), fused=tuple(pano.shape),
         max_abs_diff_vs_fused=d_staged)
+    del pano, pano_s
 
-    # 9. the record lines
+    # 9. chain, through the entry point a user calls, on the strip
+    from pano_tpu_torch import pipeline, stitch_all_images
+
+    n = len(STRIP)
+    steps = [f"Stitching image {i + 1} of {n}..." for i in range(1, n)]
+    canvas_plant = strip_shape()
+
+    def check_canvas(pano, tag, slack=1):
+        check(all(0 <= a - b <= slack
+                  for a, b in zip(pano.shape[:2], canvas_plant)),
+              f"{tag}: canvas {pano.shape} vs planted {canvas_plant}")
+
+    def check_scene(pano, imgs, offsets, seen, bar, tag):
+        """The recovered globals and the panorama against the scene."""
+        (gs, anchor), = seen
+        t_mat, _, _ = pipeline.global_canvas_geometry(imgs, gs, anchor)
+        corner_err = globals_err(gs, offsets, anchor)
+        check(corner_err < 0.5, f"{tag}: a global is off by {corner_err} px")
+        d, n_band = scene_diff(pano, imgs, offsets, anchor,
+                               (int(t_mat[1, 2]), int(t_mat[0, 2])))
+        stats = dict(max=int(d.max()), share_gt1=float((d > 1).mean()),
+                     bar=bar, edge_band_px=n_band, anchor=anchor,
+                     anchor_at=(int(t_mat[1, 2]), int(t_mat[0, 2])))
+        check(stats["max"] <= bar, f"{tag}: panorama vs scene {stats}")
+        return round(corner_err, 5), stats
+
+    chain_launches = {}
+    for tag, blend, gain in (("overlay", "overlay", False),
+                             ("feather", "feather", False),
+                             ("multiband", "multiband", False),
+                             ("feather+gain", "feather", True)):
+        cfg = DEFAULT_CONFIG.replace(stitch=dataclasses.replace(
+            DEFAULT_CONFIG.stitch, blend=blend, gain_compensation=gain))
+        k6 = n - 1 if blend != "multiband" and not gain else 0
+        want = {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
+                "K4b": n - 1, "K6": k6}
+
+        def call():
+            return stitch_all_images(strip, cfg, True, "", DEVICE, "chain")
+
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_globals(pipeline) as seen:
+            out, lines, launches_c, wall = run_mode(
+                torch, mods, want, f"chain {tag}", call)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        check_lines(lines, [*steps, f"{TOTAL}: x.xxx ms"], f"chain {tag}")
+        check_canvas(out, f"chain {tag}")
+        corner_err, stats = check_scene(
+            out, strip_np, STRIP, seen, 3 if blend == "multiband" else 2,
+            f"chain {tag}")
+        walls = [wall]
+        if tag == "overlay":  # warm calls: median of 3, each equal
+            chain_launches = launches_c
+            torch.cuda.reset_peak_memory_stats()
+            walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    again = call()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(again, out), "repeat chain differs")
+            peak = torch.cuda.max_memory_allocated() / 2**20
+        log(f"chain {tag}", canvas=out.shape, corner_err_px=corner_err,
+            scene=stats, launches=launches_c,
+            call_ms=round(float(np.median(walls)), 3),
+            call_ms_all=[round(x, 3) for x in walls],
+            first_call_ms=round(wall, 3), peak_mem_mib=round(peak, 1),
+            card=f"'{smi}'")
+        if tag == "overlay":
+            print("  " + lines[-1], flush=True)
+            log("stages chain overlay", **chain_breakdown(
+                torch, pipeline, cfg, strip_np, strip))
+
+        # The planted globals themselves: no estimate error.
+        if not gain:
+            planted = [translation(x, y) for x, y in STRIP]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            exact = pipeline.composite_global(strip_np, strip, planted, cfg)
+            composite_ms = (time.perf_counter() - t0) * 1e3
+            check(exact.shape[:2] == canvas_plant,
+                  f"planted {tag}: canvas {exact.shape}")
+            d, _ = scene_diff(exact, strip_np, STRIP, 0, (0, 0))
+            bar = {"overlay": 0, "feather": 1, "multiband": 2}[blend]
+            check(int(d.max()) <= bar, f"planted {tag}: max |d| {d.max()}")
+            log(f"chain {tag} planted globals", max_abs_diff=int(d.max()),
+                share_gt1=float((d > 1).mean()), bar=bar,
+                composite_global_ms=round(composite_ms, 3))
+            del exact
+        del out
+
+    # 10. auto: the strip shuffled, overlay
+    imgs_auto = [strip[i] for i in AUTO_ORDER]
+    np_auto = [strip_np[i] for i in AUTO_ORDER]
+    off_auto = [STRIP[i] for i in AUTO_ORDER]
+    n_pairs = n * (n - 1) // 2
+    with recorded_globals(pipeline) as seen:
+        out, lines, launches_a, wall = run_mode(
+            torch, mods,
+            {**none, "K1": n, "K2": n, "K3": n_pairs, "K4b": n - 1,
+             "K6": n - 1},
+            "auto",
+            lambda: stitch_all_images(imgs_auto, DEFAULT_CONFIG, True, "",
+                                      DEVICE, "auto"))
+    order = [x for x in lines if x.startswith("Auto-ordering")]
+    check(len(order) == 1 and order[0].endswith(f"placed {n} of {n}"),
+          f"auto: printed lines {lines}")
+    check(STAGE_LINE.match(lines[-1]) and lines[-1].startswith(TOTAL),
+          f"auto: printed lines {lines}")
+    check_canvas(out, "auto")
+    corner_err, stats = check_scene(out, np_auto, off_auto, seen, 2, "auto")
+    for line in lines:
+        print("  " + line, flush=True)
+    log("auto", order=AUTO_ORDER, canvas=out.shape,
+        corner_err_px=corner_err, scene=stats, launches=launches_a,
+        call_ms=round(wall, 3), card=f"'{smi}'")
+    del out
+
+    # 11. fold, the single-sync pair per step, overlay
+    out, lines, launches_fold, wall = run_mode(
+        torch, mods,
+        {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
+         "K4a": n - 1},
+        "fold",
+        lambda: stitch_all_images(strip, DEFAULT_CONFIG, True, "", DEVICE,
+                                  "fold", "total"))
+    check_lines(lines, [x for step in steps
+                        for x in (step, f"{STAGES[-1]}: x.xxx ms")]
+                + [f"{TOTAL}: x.xxx ms"], "fold")
+    check_canvas(out, "fold", slack=2 * (n - 1))
+    log("fold", canvas=out.shape, launches=launches_fold,
+        call_ms=round(wall, 3), card=f"'{smi}'")
+    del out
+
+    # 12. the record lines
     all_launches = {**launches, "K4b": launches_f["K4b"],
-                    "K5": launches_f["K5"]}
+                    "K5": launches_f["K5"], "K6": chain_launches["K6"]}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],

@@ -1,13 +1,17 @@
-"""pano_tpu_torch: the pair stitch of pano_tpu in PyTorch, with hand-written
-CUDA kernels for NVIDIA Hopper (sm_90a).
+"""pano_tpu_torch: pano_tpu in PyTorch, with hand-written CUDA kernels for
+NVIDIA Hopper (sm_90a).
 
 Harris corners -> SSD patch matching -> RANSAC homography -> perspective
-warp with overlay blend, held against the JAX package ``pano_tpu``, which
-stays the reference. This package imports no JAX.
+warp and blend (overlay, feather, multiband, optional exposure gain), for
+a pair or for many images (fold, chain and auto modes), held against the
+JAX package ``pano_tpu``, which stays the reference. This package imports
+no JAX.
 
-    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, stitch_all_images
     pano = PairStitcher(DEFAULT_CONFIG, device="cuda").stitch_pair_fast(
         left_bgr_u8, right_bgr_u8)
+    pano = stitch_all_images(images, DEFAULT_CONFIG, mode="chain",
+                             device="cuda")   # host uint8 BGR
 """
 
 import torch
@@ -25,7 +29,10 @@ from pano_tpu_torch.config import (  # noqa: E402
     StitchOptions,
     config_from_reference,
 )
-from pano_tpu_torch.pipeline import PairStitcher  # noqa: E402
+from pano_tpu_torch.pipeline import (  # noqa: E402
+    PairStitcher,
+    stitch_all_images,
+)
 
 __version__ = "0.1.0"
 
@@ -37,4 +44,5 @@ __all__ = [
     "StitchOptions",
     "PairStitcher",
     "config_from_reference",
+    "stitch_all_images",
 ]

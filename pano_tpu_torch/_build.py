@@ -64,6 +64,9 @@ SIGNATURES = {
     # left, win_rgb, w_win, out, hl, wl, out_h, out_w, ty, tx,
     # wy0, wx0, wy1, wx1, feather, stream
     "pano_compose_canvas": [_V] * 4 + [_I] * 11 + [_V],
+    # canvas, weight_canvas, win_rgb, w_win, canvas_w, wy0, wx0, win_h,
+    # win_w, feather, stream
+    "pano_compose_chain_canvas": [_V] * 4 + [_I] * 6 + [_V],
 }
 
 _lib = None

@@ -80,7 +80,9 @@ class StitchOptions:
     gain_compensation: bool = False  # scalar exposure gain over the
     #                                  overlap, applied to the warped
     #                                  right image (any blend)
-    bundle_adjust: str = "auto"     # not ported yet (multi-image modes)
+    bundle_adjust: str = "auto"     # auto mode's bundle gate: 'off',
+    #                                 'auto' (only with redundant edges)
+    #                                 or 'on' (ops/bundle.py)
 
 
 @dataclasses.dataclass(frozen=True)

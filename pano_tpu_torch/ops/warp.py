@@ -1,17 +1,20 @@
-"""Canvas geometry, the exact inverse warp, and every pair blend.
+"""Canvas geometry, the exact inverse warp, and every blend.
 
-Counterpart of ``pano_tpu/ops/warp.py`` for the pair stitch: host-side
-canvas and window geometry, the inverse map and the bilinear u8 sample
-with a zero border, the feather weights (``_edge_ramp``), the exposure
-gain, the multiband window composite, ``blend_window_outputs`` (the
-pair epilogue over a warped window; the plain version of kernel K5,
-``ops/cuda_compose.py``) and ``warp_and_blend`` with the overlay,
-feather and multiband blends and gain, the exact counterpart of the JAX
-function of that name (with the overlay blend, the plain version of
-kernel K4a, ``ops/cuda_warp.py``).
+Counterpart of ``pano_tpu/ops/warp.py``: host-side canvas and window
+geometry, the inverse map and the bilinear u8 sample with a zero border,
+the mip source (``downsample_pow2``), the feather weights
+(``_edge_ramp``), the exposure gain, the multiband window composite,
+``blend_window_outputs`` (the epilogue over a warped window, in pair mode
+the plain version of kernel K5, ``ops/cuda_compose.py``, and in chain
+mode, against the accumulated weight canvas, that of kernel K6) and
+``warp_and_blend`` with the overlay, feather and multiband blends and
+gain, the exact counterpart of the JAX function of that name (with the
+overlay blend, the plain version of kernel K4a, ``ops/cuda_warp.py``).
 
-``warp_weight_window`` and ``downsample_pow2`` serve the multi-image
-modes and are not ported yet.
+The JAX module's ``warp_weight_window`` is not ported: it records the
+coverage of a step that took the JAX global composite's XLA warp, which
+returns no weight, and every step of the port's global composite has
+K4b's own weight.
 """
 
 from __future__ import annotations
@@ -164,6 +167,19 @@ def warp_perspective_u8(
     return _to_u8(rgb)
 
 
+def downsample_pow2(img_u8: torch.Tensor, lvl: int) -> torch.Tensor:
+    """(H, W, 3) u8 -> (H >> lvl, W >> lvl, 3) u8 by repeated 2x2 box
+    means rounded half up ((sum + 2) >> 2), odd trailing rows and columns
+    cropped: the mip source of a minifying warp (``ops/mip.py``)."""
+    out = img_u8
+    for _ in range(lvl):
+        h2, w2 = out.shape[0] // 2, out.shape[1] // 2
+        p = out[:h2 * 2, :w2 * 2].to(torch.int32)
+        s = (p.reshape(h2, 2, w2, 2, 3).sum(dim=(1, 3)) + 2) >> 2
+        out = s.to(torch.uint8)
+    return out
+
+
 def _multiband_compose(
     left_f: torch.Tensor,    # (H, W, 3) f32
     right_f: torch.Tensor,   # (H, W, 3) f32
@@ -300,7 +316,7 @@ def _check_window(win_x, win_y, win_h, win_w, out_h, out_w) -> None:
 
 
 def blend_window_outputs(
-    left: torch.Tensor,         # (Hl, Wl, 3) u8
+    left: torch.Tensor,         # (Hl, Wl, 3) u8, or the canvas (chain)
     rgb_win: torch.Tensor,      # (win_h, win_w, 3) u8 warped right
     w_win: "torch.Tensor | None",  # (win_h, win_w) f32 warped weight
     tx: int,
@@ -310,37 +326,58 @@ def blend_window_outputs(
     out_h: int,
     out_w: int,
     blend: str = "overlay",
-) -> torch.Tensor:
-    """The (out_h, out_w, 3) u8 canvas: `left` placed at (tx, ty), and the
-    warped window composited at (win_x, win_y) against the left image's
-    edge ramp masked by non-black coverage. `w_win` may be None for the
-    overlay blend, which never reads it.
+    w_left_win: "torch.Tensor | None" = None,  # (win_h, win_w) f32
+    gain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Composite the warped window at (win_x, win_y) over the canvas.
+    Returns (the (out_h, out_w, 3) u8 canvas, the window's merged weight
+    max(w_left_win, w_win)).
 
-    The JAX function's chain mode (a canvas-sized `left` with its own
-    coverage weight, and the merged weight it returns) and its gain serve
-    the multi-image chain and are not ported yet; the pair's gain runs in
-    ``PairStitcher._window_context``."""
+    Pair mode (`w_left_win` None): the canvas is new, `left` placed at
+    (tx, ty), and the left weight is its edge ramp masked by non-black
+    coverage. Chain mode (`w_left_win` given, the accumulated weight
+    canvas over the window): `left` is the accumulated (out_h, out_w, 3)
+    canvas itself and is updated in place; tx and ty are unused.
+
+    `gain` scales the warped pixels by the exposure gain measured where
+    both weights exceed 0.05, rounded after scaling; overlay keys on the
+    pixels before it. `w_win` may be None for the overlay blend without
+    gain, which never reads it."""
     _check_blend(blend)
     win_h, win_w = rgb_win.shape[:2]
     _check_window(win_x, win_y, win_h, win_w, out_h, out_w)
-    hl, wl = left.shape[:2]
     window = (win_y, win_x, win_y + win_h, win_x + win_w)
-    canvas = left.new_zeros((out_h, out_w, 3))
-    _place(canvas, left, ty, tx)
+    if w_left_win is None:
+        canvas = left.new_zeros((out_h, out_w, 3))
+        _place(canvas, left, ty, tx)
+    else:
+        if tuple(left.shape) != (out_h, out_w, 3):
+            raise ValueError("chain mode: left must be the (out_h, out_w, 3) "
+                             "canvas")
+        canvas = left
     left_win = canvas[win_y:win_y + win_h, win_x:win_x + win_w]
-    w_left_win = left_weight_window(left_win, hl, wl, ty, tx, window)
+    if w_left_win is None:
+        w_left_win = left_weight_window(left_win, left.shape[0],
+                                        left.shape[1], ty, tx, window)
+
+    warped = rgb_win
+    if gain:
+        overlap = (w_left_win > 0.05) & (w_win > 0.05)
+        g = _estimate_gain(left_win.float(), rgb_win.float(), overlap)
+        warped = _to_u8(rgb_win.float() * g)
 
     if blend == "overlay":
         right_nonblack = rgb_win.ne(0).any(-1, keepdim=True)
-        win_out = torch.where(right_nonblack, rgb_win, left_win)
+        win_out = torch.where(right_nonblack, warped, left_win)
     elif blend == "feather":
-        win_out = _feather(left_win.float(), rgb_win.float(), w_left_win,
+        win_out = _feather(left_win.float(), warped.float(), w_left_win,
                            w_win, w_win > 0.0)
     else:
-        win_out = _multiband_compose(left_win.float(), rgb_win.float(),
+        win_out = _multiband_compose(left_win.float(), warped.float(),
                                      w_left_win, w_win)
+    new_w = w_left_win if w_win is None else torch.maximum(w_left_win, w_win)
     canvas[win_y:win_y + win_h, win_x:win_x + win_w] = win_out
-    return canvas
+    return canvas, new_w
 
 
 def warp_and_blend(

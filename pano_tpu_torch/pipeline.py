@@ -1,9 +1,12 @@
-"""Pair stitch orchestration on one device.
+"""Stitch orchestration on one device.
 
-Counterpart of the pair stitch of ``pano_tpu/pipeline.py``: the fused
+Counterpart of ``pano_tpu/pipeline.py``: the pair stitch, on the fused
 path ``PairStitcher.stitch_pair_fast`` and the staged path
 ``stitch_pair`` (per-stage timing lines), with every blend (overlay,
-feather, multiband) and optional exposure gain.
+feather, multiband) and optional exposure gain; and the multi-image
+modes of ``stitch_all_images`` (fold, chain, auto), which end in the
+global composite (``composite_global``, kernels K4b and K6), described
+at their functions below.
 
 Fused path (``stitch_pair_fast``):
 
@@ -43,17 +46,20 @@ geometry (``composite``).
 
 from __future__ import annotations
 
+import functools
 import sys
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from pano_tpu_torch.config import DEFAULT_CONFIG, PanoConfig
+from pano_tpu_torch.ops import bundle
 from pano_tpu_torch.ops import cuda_compose
 from pano_tpu_torch.ops import cuda_warp
 from pano_tpu_torch.ops import harris as harris_ops
 from pano_tpu_torch.ops import match as match_ops
+from pano_tpu_torch.ops import mip as mip_ops
 from pano_tpu_torch.ops import ransac as ransac_ops
 from pano_tpu_torch.ops import warp as warp_ops
 from pano_tpu_torch.timer import Timer, print_stage, synchronize
@@ -141,6 +147,27 @@ def _suffix(label: str, tag: str) -> str:
     return f"{label} ({tag})" if tag else label
 
 
+def _to_device(img, device) -> torch.Tensor:
+    """An (H, W, 3) uint8 BGR image (numpy array or tensor) as a
+    contiguous tensor on `device`."""
+    if isinstance(img, np.ndarray):  # torch wants writable memory
+        img = torch.from_numpy(np.require(img, requirements=["C", "W"]))
+    t = torch.as_tensor(img)
+    if t.dtype != torch.uint8 or t.dim() != 3 or t.shape[2] != 3:
+        raise ValueError(
+            f"want an (H, W, 3) uint8 BGR image, got "
+            f"{tuple(t.shape)} {t.dtype}"
+        )
+    return t.to(device).contiguous()
+
+
+def _host_fetch(t: torch.Tensor) -> np.ndarray:
+    """Device -> host copy of a multi-image path's result or stacked
+    estimates: a named indirection so that tests can count the copies a
+    path pays."""
+    return t.cpu().numpy()
+
+
 class PairStitcher:
     """Stitches image pairs on one device.
 
@@ -167,15 +194,7 @@ class PairStitcher:
         self.last_estimate: Optional[np.ndarray] = None  # last 14-float row
 
     def _to_device(self, img) -> torch.Tensor:
-        if isinstance(img, np.ndarray):  # torch wants writable memory
-            img = torch.from_numpy(np.require(img, requirements=["C", "W"]))
-        t = torch.as_tensor(img)
-        if t.dtype != torch.uint8 or t.dim() != 3 or t.shape[2] != 3:
-            raise ValueError(
-                f"want an (H, W, 3) uint8 BGR image, got "
-                f"{tuple(t.shape)} {t.dtype}"
-            )
-        return t.to(self.device).contiguous()
+        return _to_device(img, self.device)
 
     def _fused_estimate_impl(self, left: torch.Tensor, right: torch.Tensor):
         """detect x2 -> match -> RANSAC, no host sync. Returns (row (14,)
@@ -430,3 +449,391 @@ class PairStitcher:
             self._print("Image Stitching", t)
         return canvas
 
+
+# --- multi-image modes -------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=32)
+def get_pair_stitcher(
+    config: PanoConfig, print_timing: bool = True, timing_tag: str = "",
+    device="cuda", sampler: Optional[ransac_ops.Sampler] = None,
+) -> PairStitcher:
+    """Memoized PairStitcher: repeated multi-image runs with the same
+    (frozen, hashable) config, device and sampler share one instance.
+    Call with POSITIONAL arguments only: functools.lru_cache keys
+    positional and keyword calls apart, so a keyword call would duplicate
+    the stitcher."""
+    return PairStitcher(config, print_timing, timing_tag, device, sampler)
+
+
+def stitch_all_images(
+    images: List,
+    config: PanoConfig = DEFAULT_CONFIG,
+    print_timing: bool = True,
+    timing_tag: str = "",
+    device="cuda",
+    mode: str = "fold",
+    timing: str = "stages",
+    anchor: str = "auto",
+    sampler: Optional[ransac_ops.Sampler] = None,
+) -> Optional[np.ndarray]:
+    """Multi-image stitching of (H, W, 3) uint8 BGR images. Returns the
+    panorama as host uint8 BGR numpy, or None.
+
+    mode='fold': the reference's left fold (stitchAllImages,
+    src/serial/main.cpp:395-414): each image is stitched against the
+    growing panorama; a failed pair is skipped and the fold goes on.
+    With timing='stages' each pair is the staged ``stitch_pair`` with its
+    stage lines; with timing='total' the single-sync ``stitch_pair_fast``,
+    and only the "Image Stitching" and total lines print.
+
+    mode='chain': detect on the source images only, estimate the adjacent
+    pairs, compose their homographies into the first image's frame and
+    composite every image onto one global canvas (``composite_global``).
+    mode='auto': unordered input; every pair is matched, and a maximum
+    spanning tree over the inlier counts orders and frames them
+    (`anchor`: 'auto' roots it at the best-connected image, 'first' at
+    the first connected one). Both print total lines in either timing.
+
+    `device`: where every stage runs ("cuda" for the Hopper kernels,
+    "cpu" for their plain versions). `sampler` replaces RANSAC's index
+    table (``ops/ransac.py``)."""
+    if mode == "chain":
+        return stitch_all_images_chain(images, config, print_timing,
+                                       timing_tag, device, sampler)
+    if mode == "auto":
+        return stitch_all_images_auto(images, config, print_timing,
+                                      timing_tag, device, anchor, sampler)
+    if mode != "fold":
+        raise ValueError(f"unknown mode: {mode}")
+    t = Timer()
+    if not images:
+        return None
+    fast = timing == "total"
+    stitcher = get_pair_stitcher(config, print_timing and not fast,
+                                 timing_tag, device, sampler)
+    panorama = stitcher._to_device(images[0])
+    n = len(images)
+    for i in range(1, n):
+        print(f"Stitching image {i + 1} of {n}...", flush=True)
+        t_pair = Timer()
+        if fast:
+            temp = stitcher.stitch_pair_fast(panorama, images[i])
+        else:
+            temp = stitcher.stitch_pair(panorama, images[i])
+        if temp is None:
+            print(f"Failed to stitch image {i}!", file=sys.stderr)
+            continue
+        if fast and print_timing:
+            synchronize(temp.device)
+            print_stage(_suffix("Image Stitching", timing_tag),
+                        t_pair.elapsed())
+        panorama = temp
+    result = _host_fetch(panorama)
+    if print_timing:
+        print_stage(_suffix("Total Stitching Process", timing_tag),
+                    t.elapsed())
+    return result
+
+
+def stitch_all_images_chain(
+    images: List,
+    config: PanoConfig = DEFAULT_CONFIG,
+    print_timing: bool = True,
+    timing_tag: str = "",
+    device="cuda",
+    sampler: Optional[ransac_ops.Sampler] = None,
+) -> Optional[np.ndarray]:
+    """Chained-homography stitching (stitch_all_images mode='chain').
+
+    Every adjacent estimate is started first and their rows are fetched
+    with ONE host copy; the match points are fetched only on the rare
+    low-inlier (OpenCV) branch. After a failed pair the next image is
+    re-estimated against the last image that chained (the fold's skip,
+    src/serial/main.cpp:404-407)."""
+    t = Timer()
+    if not images:
+        return None
+    stitcher = get_pair_stitcher(config, print_timing, timing_tag, device,
+                                 sampler)
+    devs = [stitcher._to_device(img) for img in images]
+    n = len(devs)
+    pending = [stitcher._fused_estimate_impl(devs[i - 1], devs[i])
+               for i in range(1, n)]
+    rows = _host_fetch(torch.stack([p[0] for p in pending])) \
+        if pending else None
+
+    globals_h: List[Optional[np.ndarray]] = [np.eye(3)]
+    last_good = 0
+    for i in range(1, n):
+        print(f"Stitching image {i + 1} of {n}...", flush=True)
+        if last_good == i - 1:
+            _, pts = pending[i - 1]
+            h = stitcher.interpret_fused_row(
+                rows[i - 1],
+                lambda pts=pts: tuple(a.cpu().numpy() for a in pts),
+            )
+        else:  # the previous pair failed: re-estimate against last_good
+            h = stitcher.estimate_homography(devs[last_good], devs[i])
+        if h is None:
+            print(f"Failed to stitch image {i}!", file=sys.stderr)
+            globals_h.append(None)
+            continue
+        globals_h.append(globals_h[last_good] @ h)
+        last_good = i
+
+    result = composite_global(images, devs, globals_h, config, anchor=0)
+    if print_timing:
+        print_stage(_suffix("Total Stitching Process", timing_tag),
+                    t.elapsed())
+    return result
+
+
+def auto_detect(img: torch.Tensor, opts) -> Tuple:
+    """Auto mode's detect, once per image: (keypoints, descriptors,
+    border validity)."""
+    kps = harris_ops.harris_detect(img, opts)
+    desc, bv = match_ops.extract_patch_descriptors(img, kps, opts.patch_size)
+    return kps, desc, bv
+
+
+def auto_pair_row(feat_q, feat_t, config: PanoConfig,
+                  sampler: Optional[ransac_ops.Sampler] = None):
+    """Auto mode's pair estimate from cached features: match, RANSAC, and
+    the (11,) f32 row [H (9), inlier_count, ok] on the device."""
+    kps_q, desc_q, bq = feat_q
+    kps_t, desc_t, bt = feat_t
+    h_opts = config.harris
+    m = match_ops.match_descriptors(
+        desc_q, bq, desc_t, bt, h_opts.max_ssd_thresh,
+        ratio_thresh=h_opts.ratio_thresh, cross_check=h_opts.cross_check,
+    )
+    pq, pt, v = match_ops.gather_match_points(kps_q, kps_t, m)
+    res = ransac_ops.ransac_homography(pq, pt, v, config.ransac,
+                                       sampler=sampler)
+    return torch.cat([
+        res.H.reshape(-1).float(),
+        torch.stack([res.inlier_count.float(), res.ok.float()]),
+    ])
+
+
+def stitch_all_images_auto(
+    images: List,
+    config: PanoConfig = DEFAULT_CONFIG,
+    print_timing: bool = True,
+    timing_tag: str = "",
+    device="cuda",
+    anchor: str = "auto",
+    sampler: Optional[ransac_ops.Sampler] = None,
+) -> Optional[np.ndarray]:
+    """Unordered stitching: all-pairs matching and a maximum spanning tree
+    (stitch_all_images mode='auto').
+
+    Features are detected once per image; every pair (i < j; query j,
+    train i, so H maps j into i) is matched and RANSAC-scored, and all
+    pair rows are fetched with ONE host copy. The inlier-count graph's
+    maximum spanning tree frames the images, the bundle gate may refine
+    the globals, and ``composite_global`` draws them in the root's
+    frame."""
+    t = Timer()
+    n = len(images)
+    if n == 0:
+        return None
+    dev = torch.device(device)
+    devs = [_to_device(img, dev) for img in images]
+    feats = [auto_detect(d, config.harris) for d in devs]
+    pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
+    pending = [auto_pair_row(feats[j], feats[i], config, sampler)
+               for i, j in pairs]
+
+    counts = np.zeros((n, n), np.int64)
+    h_edge: dict = {}
+    if pending:
+        packed = _host_fetch(torch.stack(pending))
+        for k, (i, j) in enumerate(pairs):
+            if packed[k, 10] <= 0.5:
+                continue
+            counts[i, j] = counts[j, i] = int(packed[k, 9])
+            h_edge[(i, j)] = packed[k, :9].astype(np.float64).reshape(3, 3)
+
+    if counts.sum() == 0:
+        print("No connected image pairs!", file=sys.stderr)
+        return None
+
+    globals_h, root = max_spanning_tree_globals(counts, h_edge, n, anchor)
+    n_placed = sum(1 for g in globals_h if g is not None)
+    print(f"Auto-ordering: root image {root + 1}, placed {n_placed} of {n}",
+          flush=True)
+    globals_h = maybe_refine_globals(globals_h, counts, h_edge, root, images,
+                                     config)
+    result = composite_global(images, devs, globals_h, config, anchor=root)
+    if print_timing:
+        print_stage(_suffix("Total Stitching Process", timing_tag),
+                    t.elapsed())
+    return result
+
+
+def maybe_refine_globals(
+    globals_h: List[Optional[np.ndarray]],
+    counts: np.ndarray,
+    h_edge: dict,
+    root: int,
+    images: List,
+    config: PanoConfig,
+) -> List[Optional[np.ndarray]]:
+    """The bundle gate (``ops/bundle.py``), host math only.
+    config.stitch.bundle_adjust: 'off' never refines; 'auto' refines only
+    when the validated pair graph has edges beyond the spanning tree
+    (a tree's globals already satisfy every edge); 'on' always."""
+    mode = config.stitch.bundle_adjust
+    if mode == "off" or not h_edge:
+        return globals_h
+    edges = {
+        (i, j): (h, float(counts[i, j])) for (i, j), h in h_edge.items()
+    }
+    if mode == "auto" and not bundle.graph_has_cycle(
+        edges, len(images), root, globals_h
+    ):
+        return globals_h
+    shapes = [tuple(int(s) for s in im.shape[:2]) for im in images]
+    refined, stats = bundle.refine_globals(globals_h, edges, root, shapes)
+    print(
+        "Bundle refinement: rms "
+        f"{stats['rms_before']:.3f} -> {stats['rms_after']:.3f} px "
+        f"over {int(stats['n_residuals']) // 2} constraints",
+        flush=True,
+    )
+    return refined
+
+
+def max_spanning_tree_globals(
+    counts: np.ndarray, h_edge: dict, n: int, anchor: str = "auto"
+) -> Tuple[List[Optional[np.ndarray]], int]:
+    """Maximum spanning tree (Prim) over the inlier-count graph; composes
+    the edge homographies (`h_edge[(i, j)]`, i < j, maps image j into
+    image i) into the root's frame. Returns (globals_h, root), None for
+    images the tree does not reach. `anchor`: 'auto' roots at the
+    best-connected image, 'first' at the first connected one (the frame
+    chain mode would use)."""
+    deg = counts.sum(axis=1)
+    if anchor == "first":
+        connected = np.nonzero(deg > 0)[0]
+        root = int(connected[0]) if connected.size else 0
+    else:
+        root = int(np.argmax(deg))
+    in_tree = {root}
+    globals_h: List[Optional[np.ndarray]] = [None] * n
+    globals_h[root] = np.eye(3)
+    while len(in_tree) < n:
+        best = None
+        for u in in_tree:
+            for v in range(n):
+                if v in in_tree or counts[u, v] <= 0:
+                    continue
+                if best is None or counts[u, v] > best[0]:
+                    best = (counts[u, v], u, v)
+        if best is None:
+            break  # the remaining images are disconnected: excluded
+        _, u, v = best
+        if (min(u, v), max(u, v)) in h_edge:
+            h = h_edge[(min(u, v), max(u, v))]
+            # The stored H maps j -> i for (i < j); invert to hang i under j.
+            h_child_to_parent = h if v > u else np.linalg.inv(h)
+            globals_h[v] = globals_h[u] @ h_child_to_parent
+        in_tree.add(v)
+    return globals_h, root
+
+
+def global_canvas_geometry(
+    images: List, globals_h: List[Optional[np.ndarray]], anchor: int,
+) -> Tuple[np.ndarray, int, int]:
+    """The global canvas over every placed image, in the anchor's frame:
+    (t_mat, canvas_h, canvas_w). The union (f64) of the warped corners
+    and the anchor's rectangle; t_mat translates by the float -min, and
+    the canvas is exact (ceil of the extent, no bucket)."""
+    min_x = min_y = 0.0
+    max_y = float(images[anchor].shape[0])
+    max_x = float(images[anchor].shape[1])
+    for i in range(len(images)):
+        if i == anchor or globals_h[i] is None:
+            continue
+        hr, wr = images[i].shape[:2]
+        corners = warp_ops.warp_corners(globals_h[i], hr, wr)
+        min_x = min(min_x, corners[:, 0].min())
+        min_y = min(min_y, corners[:, 1].min())
+        max_x = max(max_x, corners[:, 0].max())
+        max_y = max(max_y, corners[:, 1].max())
+    t_mat = np.array(
+        [[1.0, 0.0, -min_x], [0.0, 1.0, -min_y], [0.0, 0.0, 1.0]]
+    )
+    canvas_h = int(np.ceil(max_y - min_y))
+    canvas_w = int(np.ceil(max_x - min_x))
+    return t_mat, canvas_h, canvas_w
+
+
+def composite_global(
+    images: List,
+    devs: List[torch.Tensor],
+    globals_h: List[Optional[np.ndarray]],
+    config: PanoConfig,
+    anchor: int = 0,
+    _weights_out: Optional[list] = None,
+) -> np.ndarray:
+    """Composite the images onto one global canvas: the (canvas_h,
+    canvas_w, 3) uint8 panorama on the host.
+
+    globals_h[i] maps image i into the anchor's frame (None: excluded;
+    globals_h[anchor] is the identity). The anchor goes in first, at the
+    truncated translation (int(t_mat)), and the weight canvas starts as
+    its edge ramp. Then, per placed image: the exact window of its warped
+    corners, the mip level of the map (``ops/mip.py``), the windowed warp
+    with its weight (K4b, the ramp alpha for feather and multiband), and
+    the step: K6 for overlay and feather without gain, else
+    ``blend_window_outputs`` in chain mode on the window, its merged
+    weight written back. Every blend is placed against the accumulated
+    weight canvas (the JAX package's TPU route).
+
+    `_weights_out` (tests only): a list that receives the final weight
+    canvas as host numpy."""
+    st = config.stitch
+    warp_ops._check_blend(st.blend)
+    t_mat, canvas_h, canvas_w = global_canvas_geometry(images, globals_h,
+                                                       anchor)
+    dev = devs[anchor].device
+    ty0, tx0 = int(t_mat[1, 2]), int(t_mat[0, 2])
+    canvas = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
+                         device=dev)
+    warp_ops._place(canvas, devs[anchor], ty0, tx0)
+    weight = torch.zeros((canvas_h, canvas_w), dtype=torch.float32,
+                         device=dev)
+    ha, wa = devs[anchor].shape[:2]
+    warp_ops._place(weight, warp_ops._edge_ramp(ha, wa, dev), ty0, tx0)
+    has_alpha = st.blend in ("feather", "multiband")
+    kernel_step = st.blend != "multiband" and not st.gain_compensation
+    for i in range(len(images)):
+        if i == anchor or globals_h[i] is None:
+            continue
+        m = t_mat @ np.asarray(globals_h[i], np.float64)
+        m_inv = np.linalg.inv(m)
+        hr, wr = devs[i].shape[:2]
+        window = warp_ops.warp_window(warp_ops.warp_corners(m, hr, wr),
+                                      canvas_h, canvas_w)
+        wy0, wx0, wy1, wx1 = window
+        lvl = mip_ops.pick_mip_level(m_inv, wy1 - wy0, wx1 - wx0,
+                                     off_x=wx0, off_y=wy0) or 0
+        src = devs[i] if lvl == 0 else warp_ops.downsample_pow2(devs[i], lvl)
+        rgb_win, w_win = cuda_warp.warp_packed(
+            src, mip_ops.mip_m_inv(m_inv, lvl), window, has_alpha=has_alpha)
+        if kernel_step:
+            cuda_compose.compose_chain_canvas(canvas, weight, rgb_win, w_win,
+                                              window, st.blend)
+        else:
+            _, new_w = warp_ops.blend_window_outputs(
+                canvas, rgb_win, w_win, 0, 0, wx0, wy0, canvas_h, canvas_w,
+                st.blend, w_left_win=weight[wy0:wy1, wx0:wx1],
+                gain=st.gain_compensation,
+            )
+            weight[wy0:wy1, wx0:wx1] = new_w
+    if _weights_out is not None:
+        _weights_out.append(weight.cpu().numpy())
+    return _host_fetch(canvas)

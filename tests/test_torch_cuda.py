@@ -245,3 +245,83 @@ def test_feather_pair_on_gpu_matches_cpu():
     h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
     d = (got.cpu()[:h, :w].int() - want[:h, :w].int()).abs().amax(-1)
     assert float((d > 3).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("blend", ["overlay", "feather"])
+@pytest.mark.parametrize("window", [(128, 256, 384, 512), (13, 29, 90, 122)],
+                         ids=["aligned", "unaligned"])
+def test_compose_chain_kernel_vs_plain(blend, window):
+    """K6 in place on the card against its plain version: overlay
+    bit-identical, feather max |d| <= 1, the weight canvas exact, nothing
+    outside the window touched."""
+    from pano_tpu_torch.ops import cuda_compose
+
+    rng = np.random.default_rng(63)
+    shape = (384, 512)
+    canvas = _img(shape, 64)
+    wcan = np.where(rng.random(shape) < 0.5, 0.0,
+                    rng.random(shape)).astype(np.float32)
+    wy0, wx0, wy1, wx1 = window
+    win = _img((wy1 - wy0, wx1 - wx0), 65)
+    hole = rng.random(win.shape[:2]) < 0.3
+    win[hole] = 0
+    w = np.where(hole, 0.0, rng.random(win.shape[:2])).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (canvas, wcan, win, w)]
+    got_c, got_w = cuda_compose.compose_chain_canvas(
+        *[a.clone().cuda() for a in args], window, blend)
+    want_c, want_w = cuda_compose.compose_chain_canvas_plain(
+        *[a.clone().cuda() for a in args], window, blend)
+    d = int((got_c.int() - want_c.int()).abs().max())
+    assert d <= (0 if blend == "overlay" else 1)
+    assert torch.equal(got_w, want_w)
+    outside = torch.ones(shape, dtype=torch.bool)
+    outside[wy0:wy1, wx0:wx1] = False
+    assert torch.equal(got_c.cpu()[outside], args[0][outside])
+    assert torch.equal(got_w.cpu()[outside], args[1][outside])
+
+
+@pytest.mark.parametrize("blend", ["overlay", "feather"])
+def test_chain_mode_on_gpu_matches_cpu(blend):
+    """stitch_all_images(mode='chain') on the card against the plain
+    versions on the CPU, with one injected sample table: K1 x4, K2 x4,
+    K3 x2, K4b x2, K6 x2 on the card, the canvas within one row and
+    column, and (d > 3) on < 1 % of the shared pixels."""
+    from pano_tpu_torch import PanoConfig, stitch_all_images
+    from pano_tpu_torch.config import (
+        HarrisOptions, RansacOptions, StitchOptions,
+    )
+    from pano_tpu_torch.ops import (
+        cuda_compose, cuda_gather, cuda_harris, cuda_match, cuda_warp,
+    )
+
+    r = np.random.default_rng(66)
+    base = r.integers(0, 60, (128, 280, 3)).astype(np.uint8)
+    for _ in range(240):
+        y, x = r.integers(2, 118), r.integers(2, 270)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    imgs = [base[:, 0:140].copy(), base[:, 70:210].copy(),
+            base[:, 140:280].copy()]
+    table = torch.from_numpy(r.integers(0, 2**31, (500, 4)))
+    cfg = PanoConfig(harris=HarrisOptions(max_keypoints=512),
+                     ransac=RansacOptions(num_iterations=500),
+                     stitch=StitchOptions(blend=blend))
+
+    def sampler(n_valid):
+        return table.to(n_valid.device) % torch.clamp(n_valid.long(), min=1)
+
+    want = stitch_all_images(imgs, cfg, print_timing=False, device="cpu",
+                             mode="chain", sampler=sampler)
+    counters = [(cuda_harris, "launches"), (cuda_gather, "launches"),
+                (cuda_match, "launches"), (cuda_warp, "launches"),
+                (cuda_warp, "packed_launches"), (cuda_compose, "launches"),
+                (cuda_compose, "chain_launches")]
+    for mod, attr in counters:
+        setattr(mod, attr, 0)
+    got = stitch_all_images(imgs, cfg, print_timing=False, device="cuda",
+                            mode="chain", sampler=sampler)
+    assert [getattr(m, a) for m, a in counters] == [4, 4, 2, 0, 2, 0, 2]
+    assert isinstance(got, np.ndarray) and got.dtype == np.uint8
+    assert all(abs(a - b) <= 1 for a, b in zip(got.shape, want.shape))
+    h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
+    d = np.abs(got[:h, :w].astype(int) - want[:h, :w].astype(int)).max(-1)
+    assert (d > 3).mean() < 0.01

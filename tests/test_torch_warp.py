@@ -275,7 +275,7 @@ def test_blend_window_outputs_matches_xla(images, blend):
         jnp.asarray(left), jnp.asarray(packed), jnp.asarray(w_np), s(tx),
         s(ty), s(window[1]), s(window[0]), out_h, out_w, 224, 400, blend,
     )
-    got = TW.blend_window_outputs(
+    got, _ = TW.blend_window_outputs(
         torch.from_numpy(left), rgb, w, tx, ty, window[1], window[0], out_h,
         out_w, blend,
     )
