@@ -19,16 +19,22 @@ failure.
    4156x3117 crops of one 8356x3169 scene at the planted offsets
    (0, 0), (1400, 37), (2800, 15), (4200, 52).
 4. kernels: each of the seven kernels against its plain PyTorch version
-   on the card, at the main path's shapes, with the tolerances below;
-   median time of 10 runs (CUDA events, L2 flushed) beside the plain
-   version's and, where one PyTorch call computes the same function,
-   that call's. K4a, K4b and K5 run on the planted pair translation and
-   on a mild projective H; K4b with and without the ramp alpha, K5 with
-   overlay and feather. K6 runs a step of the strip's chain (image 2 into
-   the canvas that holds image 1 and its weight ramp), planted and
-   projective, overlay exact and feather within 1, the weight canvas
-   exact; K6 updates in place, so each timed run starts from a fresh
-   copy made outside the timed region.
+   on the card, at the main path's shapes, with the tolerances below
+   (K1, K2 and K3 bit-identical: torch.equal on every output); median
+   time of 10 runs (CUDA events, L2 flushed; `ms`, the wrapper's host
+   time included where it outlasts the flush) beside the plain version's
+   and, where one PyTorch call computes the same function, that call's.
+   After all of them, each kernel's device time alone (`device_ms`: the
+   card warmed by ~0.2 s of memsets, a spin before each run so that it
+   is still busy while the host enqueues). K3 has no library call;
+   its product alone, torch.mm in f32 with TF32 off, is timed
+   beside it as a yardstick (product_ms). K4a, K4b and K5 run on the
+   planted pair translation and on a mild projective H; K4b with and
+   without the ramp alpha, K5 with overlay and feather. K6 runs a step
+   of the strip's chain (image 2 into the canvas that holds image 1 and
+   its weight ramp), planted and projective, overlay exact and feather
+   within 1, the weight canvas exact; K6 updates in place, so each timed
+   run starts from a fresh copy made outside the timed region.
 5. main path (overlay): PairStitcher(DEFAULT_CONFIG, device="cuda")
    .stitch_pair_fast(left, right) with K = 8192 and 1000 hypotheses: the
    recovered H within 0.5 px of the planted one at the right image's
@@ -79,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import io
 import json
 import re
@@ -117,12 +124,16 @@ KERNELS = {
 # over the peak rate of their type.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12        # f32 outside the tensor cores
-BF16_TC_OPS_PER_S = 989e12    # bf16 tensor cores (K3's exact alternative)
+INT8_TC_OPS_PER_S = 1979e12   # int8 tensor cores (K3's u8 product)
 
 # Operations per output pixel, counted from each kernel's arithmetic.
 # K1: gray 5, two Sobels 22, products 3, two 5-tap Gaussian passes over
 #     three planes 54, R 7, NMS 9 compares.
 K1_OPS_PER_PX = 100
+# K3's f32 epilogue per (query, train) pair, from csrc/match.cu: the SSD
+#     (convert, scale, two adds) 4, the row's best, index and second 5,
+#     the column's masked minimum and its row 4.
+K3_EPILOGUE_OPS = 13
 # K4a/K4b: inverse map 14, floor and fractions 4, tap weights 8, three
 #     channels of four taps 24, round and clip 9; the weight 4 more, and
 #     with the ramp alpha 12 a tap for the ramp and its sum.
@@ -195,14 +206,25 @@ class Timer:
     """Median device time of `reps` runs with CUDA events, the 50 MB L2
     overwritten before each run."""
 
+    SPIN_CYCLES = 1_000_000  # ~0.5 ms of the card's clock
+
     def __init__(self, torch):
         self.torch = torch
         self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=DEVICE)
 
+    def warm(self) -> None:
+        """~0.2 s of memsets, so that the card leaves its idle clocks."""
+        for _ in range(2000):
+            self.flush.zero_()
+        self.torch.cuda.synchronize()
+
     def __call__(self, fn, reps: int = 10, warmup: int = 2,
-                 setup=None) -> float:
+                 setup=None, spin: bool = False) -> float:
         """`setup`, when given, runs before each run, outside the timed
-        region (a kernel that updates its input in place re-primes it)."""
+        region (a kernel that updates its input in place re-primes it).
+        `spin` puts a ~0.5 ms spin before each run, so that the card is
+        still busy while the host enqueues the call: the time is then the
+        device's alone, without the wrapper's host time in the window."""
         torch = self.torch
         for _ in range(warmup):
             if setup is not None:
@@ -213,6 +235,8 @@ class Timer:
             if setup is not None:
                 setup()
             self.flush.zero_()
+            if spin:
+                torch.cuda._sleep(self.SPIN_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -223,10 +247,13 @@ class Timer:
         return float(np.median(times))
 
 
-def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
-    """(bound_ms, bound_by): the larger of the two least times."""
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S,
+          more=()):
+    """(bound_ms, bound_by): the larger of the two least times. `more`
+    holds (ops, rate) of operations of other types, which run on other
+    units: the operations time is the largest of them."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
+    t_ops = max([nops / ops_per_s] + [n / r for n, r in more]) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -563,10 +590,14 @@ def main() -> None:
     timer = Timer(torch)
     hopts = DEFAULT_CONFIG.harris
     res = {}
+    # (kernel, call, setup) of each kernel's timed call, for the device
+    # times taken after all of the `ms` below.
+    device_runs = []
 
     got = cuda_harris.harris_scores(left, hopts.k, hopts.nms_thresh)
     want = cuda_harris.harris_scores_plain(left, hopts.k, hopts.nms_thresh)
     err = check_harris(got, want)
+    check(torch.equal(got, want), "K1 differs from the plain version")
     res["K1"] = dict(
         max_abs_err=err,
         ms=timer(lambda: cuda_harris.harris_scores(
@@ -577,6 +608,8 @@ def main() -> None:
         bound=bound(nbytes(left, got), left.shape[0] * left.shape[1]
                     * K1_OPS_PER_PX),
     )
+    device_runs.append(("K1", functools.partial(
+        cuda_harris.harris_scores, left, hopts.k, hopts.nms_thresh), None))
     log("K1 harris_scores", shape=tuple(got.shape), **res["K1"])
 
     kps_l = harris.harris_detect(left, hopts)
@@ -597,6 +630,8 @@ def main() -> None:
         # The patch pixels it reads, the keypoints, the descriptors.
         bound=bound(xy_l.shape[0] * p * p * 3 + nbytes(xy_l, bv_l, got), 0),
     )
+    device_runs.append(("K2", functools.partial(
+        cuda_gather.gather_patches, left, xy_l, bv_l, p), None))
     log("K2 gather_patches", shape=tuple(got.shape),
         valid=int(bv_l.sum()), **res["K2"])
 
@@ -608,10 +643,13 @@ def main() -> None:
         check(torch.equal(a, b), f"K3 {name} differs from the plain version")
     fin = torch.isfinite(want[0]) & torch.isfinite(got[0])
     # Only p*p*3 = 75 of the 128 descriptor columns carry data (K2 writes
-    # zeros in the rest); the function's work is over those 75. The kernel
-    # still spends time on the zero columns.
-    k3_ops = 2 * desc_r.shape[0] * desc_l.shape[0] * p * p * 3
+    # zeros in the rest); the product's work is over those 75, at the
+    # int8 tensor-core rate. The f32 epilogue is per (query, train) pair.
+    kq, kt = desc_r.shape[0], desc_l.shape[0]
+    k3_mma = 2 * kq * kt * p * p * 3
+    k3_epilogue = kq * kt * K3_EPILOGUE_OPS
     k3_bytes = nbytes(desc_r, bv_r, desc_l, bv_l, *got)
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
     res["K3"] = dict(
         max_abs_err=float((got[0][fin] - want[0][fin]).abs().max())
         if bool(fin.any()) else 0.0,
@@ -619,11 +657,16 @@ def main() -> None:
         plain_ms=timer(
             lambda: cuda_match.match_cores_plain(desc_r, bv_r, desc_l, bv_l)),
         library_ms=None,
-        bound=bound(k3_bytes, k3_ops),
+        bound=bound(k3_bytes, k3_epilogue,
+                    more=((k3_mma, INT8_TC_OPS_PER_S),)),
     )
-    log("K3 match_streaming", kq=desc_r.shape[0], kt=desc_l.shape[0],
-        d=desc_r.shape[1], bound_bf16_tensor_core=bound(
-            k3_bytes, k3_ops, BF16_TC_OPS_PER_S), **res["K3"])
+    device_runs.append(("K3", functools.partial(
+        cuda_match.match_cores, desc_r, bv_r, desc_l, bv_l), None))
+    log("K3 match_streaming", kq=kq, kt=kt, d=desc_r.shape[1],
+        product_ms=timer(lambda: torch.mm(desc_r, desc_l.T)),
+        bound_int8_product_ms=k3_mma / INT8_TC_OPS_PER_S * 1e3,
+        bound_f32_epilogue_ms=k3_epilogue / FP32_OPS_PER_S * 1e3,
+        bound_bytes_ms=k3_bytes / HBM_BYTES_PER_S * 1e3, **res["K3"])
 
     h_plant = np.array([[1.0, 0, DX], [0, 1.0, DY], [0, 0, 1.0]])
     m_proj = np.array(
@@ -654,6 +697,8 @@ def main() -> None:
                 bound=bound(nbytes(right, left, got),
                             win_px * WARP_OPS_PER_PX),
             )
+            device_runs.append(("K4a", functools.partial(
+                cuda_warp.warp_compose_overlay, *call_args), None))
 
         # K4b: the windowed warp, without and with the ramp alpha
         for has_alpha in (False, True):
@@ -684,6 +729,8 @@ def main() -> None:
                 bound=bound(nbytes(right, rgb, w),
                             win_px * (WARP_OPS_PER_PX + ALPHA_OPS_PER_PX)),
             )
+            device_runs.append(("K4b", functools.partial(
+                cuda_warp.warp_packed, *wargs), None))
             del sx, sy, grid, src
 
         # K5: compose the ramp-alpha window by overlay and by feather
@@ -707,6 +754,8 @@ def main() -> None:
                 bound=bound(nbytes(left, rgb, w, got),
                             win_px * FEATHER_OPS_PER_PX),
             )
+            device_runs.append(("K5", functools.partial(
+                cuda_compose.compose_canvas, *cargs), None))
     del got, want, desc_r, desc_l, rgb, w, rgb_p, w_p
 
     # K6: a chain step of the strip, image 2 into the canvas that holds
@@ -759,10 +808,22 @@ def main() -> None:
                 # pixel and weight read: 3 + 3 + 4 + 4 + 3 + 4 bytes.
                 bound=bound(win_px * 21, win_px * CHAIN_OPS_PER_PX),
             )
+            device_runs.append(("K6", functools.partial(
+                cuda_compose.compose_chain_canvas, *work, *cargs),
+                functools.partial(prime, work)))
     for k in ("K4a", "K4b", "K5", "K6"):
         res[k]["max_abs_err"] = max(errs[k])
         log(f"{k} {KERNELS[k][0]}", **res[k])
-    del rgb, w, work, ref, base_c, base_w
+
+    # Device time of each kernel, taken after every `ms` above so that
+    # those stay as earlier versions of this script took them: the card
+    # warmed first, and a spin before each run, so that the wrapper's
+    # host time is not in the window.
+    timer.warm()
+    for k, fn, setup in device_runs:
+        res[k]["device_ms"] = timer(fn, setup=setup, spin=True)
+    log("device time", **{k: res[k]["device_ms"] for k in KERNELS})
+    del device_runs, fn, setup, rgb, w, work, ref, base_c, base_w
 
     mods = {"K1": (cuda_harris, "launches"), "K2": (cuda_gather, "launches"),
             "K3": (cuda_match, "launches"), "K4a": (cuda_warp, "launches"),
@@ -1012,6 +1073,7 @@ def main() -> None:
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": all_launches[k],
          "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
+         "device_ms": res[k]["device_ms"],
          "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
          "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"]}
         for k in KERNELS

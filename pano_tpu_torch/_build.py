@@ -10,7 +10,9 @@ kernel launch and again whenever a source, a header or the flags change
 Every C entry takes raw device pointers and the CUDA stream as
 ``void*``, launches on that stream, allocates nothing and returns
 ``cudaGetLastError()``; the Python wrappers allocate outputs with
-``torch.empty`` and raise on a non-zero return (``check``).
+``torch.empty`` and raise on a non-zero return (``check``). One entry
+runs on the host alone: ``pano_match_scratch`` says how much scratch a
+matcher call needs.
 """
 
 from __future__ import annotations
@@ -29,9 +31,11 @@ BUILD_DIR = _PKG.parent / "build" / "pano_tpu_torch"
 LIB_PATH = BUILD_DIR / "libpano_kernels.so"
 LOG_PATH = BUILD_DIR / "nvcc.log"
 
-# -fmad=false: no a*b+c contraction, so the stencil and warp arithmetic
-# round exactly like the plain PyTorch versions (see csrc/harris.cu). The
-# matcher's products use explicit fmaf, which is exact for its integers.
+# -fmad=false: no a*b+c contraction, so the stencil, warp and compose
+# arithmetic rounds exactly like the plain PyTorch versions (see
+# csrc/harris.cu). The matcher does not depend on it: its products are
+# integer mma, and its SSD (qn + tn) - 2 * dot rounds alike with or
+# without contraction, since 2 * dot is exact.
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + [
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -41,6 +45,7 @@ NVCC_FLAGS = ARCH_FLAGS + [
 _V = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (restype is always int).
 SIGNATURES = {
@@ -48,11 +53,12 @@ SIGNATURES = {
     "pano_harris_scores": [_V, _V, _I, _I, _F, _F, _F, _F, _F, _V],
     # img, xy, border_valid, desc, h, w, k, p, d_pad, stream
     "pano_gather_patches": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _V],
-    # q, t, qsq, tsq, vq, vt, best, idx, second, col_key, col_best,
+    # q, t, vq, vt, best, idx, second, col_best, scratch, scratch_bytes,
     # kq, kt, d, stream
-    "pano_match_streaming": [
-        _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _V, _I, _I, _I, _V
-    ],
+    "pano_match_streaming": [_V] * 9 + [_L, _I, _I, _I, _V],
+    # kq, kt, d -> scratch bytes, train columns per split (host only)
+    "pano_match_scratch": [_I, _I, _I, ctypes.POINTER(_L),
+                           ctypes.POINTER(_I)],
     # right, left, out, hr, wr, hl, wl, out_h, out_w, ty, tx,
     # wy0, wx0, wy1, wx1, m00..m22, stream
     "pano_warp_compose_overlay": (

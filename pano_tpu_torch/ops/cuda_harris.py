@@ -1,10 +1,14 @@
 """K1: fused Harris scores (``csrc/harris.cu``) and its plain version.
 
 Replaces ``pano_tpu/ops/pallas_harris.py::harris_scores`` (body
-``_make_kernel``, launched by ``_scores_batched``). What bounds the kernel
-on an H100 and what its design does about it is noted at the top of
-``csrc/harris.cu``: a shared-memory stencil that reads the u8 image once
-and writes only the quarter-size folded score map.
+``_make_kernel``, launched by ``_scores_batched``). The kernel is bound
+by its ~100 f32 operations a pixel, not by its bytes (one read of the
+u8 image, one write of the quarter-size folded map). It is a streaming
+stencil: each warp walks down a 128-column strip, holds the vertical
+taps in registers, takes the horizontal ones by warp shuffles, and so
+computes every product once with a halo of 8 columns and 8 rows a
+strip; ``csrc/harris.cu`` has the details. It is bit-identical to the
+plain version: the same f32 operations in the same order.
 
 ``harris_scores`` takes the plain version for a tensor on the CPU and
 launches the kernel for a CUDA tensor (3x3 NMS only: another window
@@ -12,6 +16,8 @@ raises there); any other device raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -23,6 +29,7 @@ from pano_tpu_torch.ops import harris as harris_ops
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
 
 
+@functools.cache
 def _gauss_taps():
     """The Gaussian's 1-D taps g0, g1, g2 (g3 = g1, g4 = g0) in f32."""
     g = conv_ops.gaussian_kernel_1d(5, 1.0).astype(np.float32)

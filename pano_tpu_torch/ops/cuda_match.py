@@ -1,13 +1,20 @@
-"""K3: streaming argmin-SSD matcher (``csrc/match.cu``) and its plain
-version.
+"""K3: streaming argmin-SSD matcher on the tensor cores (``csrc/match.cu``)
+and its plain version.
 
 Replaces ``pano_tpu/ops/pallas_match.py::match_streaming_pallas`` (body
 ``_kernel``, launched by ``_cores_pallas``). Both versions return the
 matcher's cores: per query the best SSD, its index and the second best;
 per train column the best valid query row. The plain version is the
-dense one of ``_cores_xla``. What bounds the kernel on an H100, and why it
-is bit-identical to the plain version, is noted at the top of
-``csrc/match.cu``.
+dense one of ``_cores_xla``.
+
+The kernel computes q.t with u8 x u8 -> s32 ``mma.sync`` (exact, as the
+entries are u8 values) and is bit-identical to the plain version. Its
+time goes to the epilogue, ~13 f32 operations for each (query, train)
+pair, not to the product; ``csrc/match.cu`` says how the design keeps
+that epilogue branch-free, splits the train axis across blocks to fill
+the card and merges the splits. One call launches three kernels
+(conversion prologue, main, finish) on scratch allocated here, and
+counts as one launch.
 
 ``match_cores`` takes the plain version for tensors on the CPU and
 launches the kernel for CUDA tensors; any other device raises.
@@ -15,11 +22,25 @@ launches the kernel for CUDA tensors; any other device raises.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from pano_tpu_torch import _build
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+
+@functools.lru_cache(maxsize=64)
+def scratch_plan(kq: int, kt: int, d: int) -> tuple[int, int]:
+    """(scratch bytes, train columns per split) of one kernel call, as
+    ``csrc/match.cu`` plans them."""
+    nbytes, split_cols = ctypes.c_longlong(), ctypes.c_int()
+    _build.check(_build.lib().pano_match_scratch(
+        kq, kt, d, ctypes.byref(nbytes), ctypes.byref(split_cols)),
+        "pano_match_scratch")
+    return nbytes.value, split_cols.value
 
 
 def match_cores_plain(desc_q, valid_q, desc_t, valid_t):
@@ -43,7 +64,9 @@ def match_cores_plain(desc_q, valid_q, desc_t, valid_t):
 
 def match_cores(desc_q, valid_q, desc_t, valid_t):
     """Matcher cores of (Kq, D) and (Kt, D) f32 descriptors whose entries
-    are u8 values, with (Kq,) and (Kt,) bool validity."""
+    are u8 values, with (Kq,) and (Kt,) bool validity. The kernel is
+    bit-identical to the plain version while D * 255^2 < 2^24 (D <= 258:
+    every dot product is then exact in f32)."""
     kq, d = desc_q.shape
     kt = desc_t.shape[0]
     if desc_q.dtype != torch.float32 or desc_t.dtype != torch.float32 \
@@ -64,21 +87,19 @@ def match_cores(desc_q, valid_q, desc_t, valid_t):
         raise ValueError("match_cores: inputs must be contiguous")
     if kq == 0 or kt == 0 or d == 0:
         raise ValueError(f"match_cores: empty problem {(kq, kt, d)}")
-    # |q|^2 and |t|^2 are integers below 2^24: exact in any order.
-    q_sq = torch.sum(desc_q * desc_q, dim=1)
-    t_sq = torch.sum(desc_t * desc_t, dim=1)
     best = torch.empty(kq, dtype=torch.float32, device=dev)
     idx = torch.empty(kq, dtype=torch.int32, device=dev)
     second = torch.empty(kq, dtype=torch.float32, device=dev)
-    col_key = torch.empty(kt, dtype=torch.int64, device=dev)  # scratch
     col_best = torch.empty(kt, dtype=torch.int32, device=dev)
+    nbytes, _ = scratch_plan(kq, kt, d)
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     global launches
     _build.launch(
         "pano_match_streaming", dev,
-        desc_q.data_ptr(), desc_t.data_ptr(), q_sq.data_ptr(),
-        t_sq.data_ptr(), valid_q.data_ptr(), valid_t.data_ptr(),
-        best.data_ptr(), idx.data_ptr(), second.data_ptr(),
-        col_key.data_ptr(), col_best.data_ptr(), kq, kt, d,
+        desc_q.data_ptr(), desc_t.data_ptr(), valid_q.data_ptr(),
+        valid_t.data_ptr(), best.data_ptr(), idx.data_ptr(),
+        second.data_ptr(), col_best.data_ptr(), scratch.data_ptr(), nbytes,
+        kq, kt, d,
     )
     launches += 1
     return best, idx, second, col_best

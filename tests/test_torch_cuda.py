@@ -26,20 +26,38 @@ def _img(shape, seed):
                                                 dtype=np.uint8)
 
 
-@pytest.mark.parametrize("shape", [(300, 700), (151, 333), (5, 9)])
+@pytest.mark.parametrize("shape", [(300, 700), (151, 333), (5, 9),
+                                   (3117, 4156), (64, 241), (97, 121)])
 def test_harris_kernel_vs_plain(shape):
-    """tests/test_pallas_harris.py's bar (the kernel is built with
-    -fmad=false and matches bit for bit in practice)."""
+    """Bit-identical (the kernel keeps the plain version's rounding order
+    under -fmad=false): at the main path's size, at widths that are not
+    a multiple of a warp's 120-column strip, odd sizes and the smallest
+    image."""
     from pano_tpu_torch.ops import cuda_harris
 
     img = torch.from_numpy(_img(shape, 51)).cuda()
-    got = cuda_harris.harris_scores(img, 0.04, 1e6).cpu().numpy()
-    want = cuda_harris.harris_scores_plain(img, 0.04, 1e6).cpu().numpy()
-    assert got.shape == want.shape
-    assert (np.isneginf(got) == np.isneginf(want)).mean() > 0.9995
-    both = ~np.isneginf(got) & ~np.isneginf(want)
-    rel = np.abs(got[both] - want[both]) / np.maximum(np.abs(want[both]), 1)
-    assert rel.size == 0 or ((rel > 2e-4).mean() < 0.005 and rel.max() < 0.02)
+    got = cuda_harris.harris_scores(img, 0.04, 1e6)
+    want = cuda_harris.harris_scores_plain(img, 0.04, 1e6)
+    assert torch.equal(got, want)
+    assert bool(torch.isfinite(want).any()) or shape == (5, 9)
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_harris_kernel_unaligned_image(offset):
+    """An image whose data starts 1-3 bytes past a 4-byte boundary (the
+    kernel reads aligned words and shifts the bytes into place), on a
+    textured image with a threshold of 0 so that most blocks hold a
+    peak."""
+    from pano_tpu_torch.ops import cuda_harris
+
+    h, w = 130, 251
+    buf = torch.zeros(h * w * 3 + 8, dtype=torch.uint8)
+    buf[offset:offset + h * w * 3] = torch.from_numpy(_img((h, w), 50)).flatten()
+    img = buf.cuda()[offset:offset + h * w * 3].view(h, w, 3)
+    assert img.is_contiguous() and img.data_ptr() % 4 == offset
+    got = cuda_harris.harris_scores(img, 0.04, 0.0)
+    want = cuda_harris.harris_scores_plain(img, 0.04, 0.0)
+    assert torch.equal(got, want)
 
 
 def test_harris_detect_same_keypoints_on_gpu_and_cpu():
@@ -81,29 +99,102 @@ def test_gather_kernel_vs_plain():
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kq,kt", [(300, 437), (64, 64), (1, 700)])
+MATCH_BQ = 128  # query rows per block of csrc/match.cu
+
+
+def _match_descs(rng, k, used=75):
+    """u8-valued (k, 128) descriptors, zero past `used`, a third of the
+    rows duplicated (exact SSD ties), 15 % invalid."""
+    d = rng.integers(0, 256, (k, 128)).astype(np.float32)
+    d[:, used:] = 0
+    n = k // 3
+    d[rng.integers(0, k, n)] = d[rng.integers(0, k, n)]
+    return d, rng.random(k) > 0.15
+
+
+def _match_equal(dq, vq, dt, vt):
+    from pano_tpu_torch.ops import cuda_match
+
+    args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in (dq, vq, dt, vt)]
+    got = cuda_match.match_cores(*args)
+    want = cuda_match.match_cores_plain(*args)
+    for name, a, b in zip(("best", "idx", "second", "col_best"), got, want):
+        assert torch.equal(a, b), name
+    return want
+
+
+@pytest.mark.parametrize("kq,kt", [(300, 437), (64, 64), (1, 700),
+                                   (8192, 8192), (1000, 3001), (129, 8191)])
 def test_match_kernel_vs_plain(kq, kt):
     """Bit-identical cores, with duplicated rows (ties) and invalid rows
-    and columns."""
+    and columns, at the main path's size and at ragged sizes that cut a
+    block, a tile and a split of the train axis; duplicates sit on both
+    sides of every split boundary and of every 128-row query block."""
     from pano_tpu_torch.ops import cuda_match
 
     rng = np.random.default_rng(54)
-
-    def descs(k):
-        d = rng.integers(0, 256, (k, 128)).astype(np.float32)
-        d[:, 75:] = 0
-        n = k // 3
-        d[rng.integers(0, k, n)] = d[rng.integers(0, k, n)]
-        return (torch.from_numpy(d).cuda(),
-                torch.from_numpy(rng.random(k) > 0.15).cuda())
-
-    dq, vq = descs(kq)
-    dt, vt = descs(kt)
+    dq, vq = _match_descs(rng, kq)
+    dt, vt = _match_descs(rng, kt)
     dt[: min(kq, kt) // 2] = dq[: min(kq, kt) // 2]
-    got = cuda_match.match_cores(dq, vq, dt, vt)
-    want = cuda_match.match_cores_plain(dq, vq, dt, vt)
-    for name, a, b in zip(("best", "idx", "second", "col_best"), got, want):
-        assert torch.equal(a, b), name
+    _, span = cuda_match.scratch_plan(kq, kt, 128)
+    for b in range(span, kt, span):
+        dt[b] = dt[b - 1]                 # a tie across the boundary
+        dt[b - 2] = dt[min(b + 3, kt - 1)]
+        vt[b - 1] = vt[b] = True
+    for b in range(MATCH_BQ, kq, MATCH_BQ):
+        dq[b] = dq[b - 1]                 # column ties across query blocks
+        vq[b - 1] = vq[b] = True
+    _match_equal(dq, vq, dt, vt)
+
+
+def test_match_kernel_all_invalid_train():
+    """No valid train column: best and second +inf, index 0; every column
+    best row 0, as argmin over +inf."""
+    rng = np.random.default_rng(55)
+    dq, vq = _match_descs(rng, 300)
+    dt, _ = _match_descs(rng, 200)
+    best, idx, second, col_best = _match_equal(
+        dq, vq, dt, np.zeros(200, bool))
+    assert bool(torch.isinf(best).all()) and bool(torch.isinf(second).all())
+    assert not bool(idx.any()) and not bool(col_best.any())
+
+
+def test_match_kernel_max_value():
+    """All 128 columns at 255 on some rows (and 0 on others): dot
+    products reach 128 * 255^2 = 8.3 M and norm sums 16.6 M, still below
+    2^24."""
+    rng = np.random.default_rng(56)
+    dq, vq = _match_descs(rng, 700, used=128)
+    dt, vt = _match_descs(rng, 900, used=128)
+    dq[rng.integers(0, 700, 40)] = 255.0
+    dt[rng.integers(0, 900, 40)] = 255.0
+    dq[rng.integers(0, 700, 20)] = 0.0
+    dt[rng.integers(0, 900, 20)] = 0.0
+    assert (dq == 255).all(1).any() and ((dt == 255).all(1) & vt).any()
+    _match_equal(dq, vq, dt, vt)
+
+
+def test_match_kernel_refuses_short_scratch():
+    """The C entry checks the caller's scratch against its own plan and
+    refuses a buffer one byte short before launching anything."""
+    from pano_tpu_torch import _build
+    from pano_tpu_torch.ops import cuda_match
+
+    kq, kt, d = 300, 437, 128
+    nbytes, _ = cuda_match.scratch_plan(kq, kt, d)
+    q = torch.zeros(kq, d, device="cuda")
+    t = torch.zeros(kt, d, device="cuda")
+    vq = torch.ones(kq, dtype=torch.bool, device="cuda")
+    vt = torch.ones(kt, dtype=torch.bool, device="cuda")
+    outs = [torch.empty(k, dtype=torch.int32, device="cuda")
+            for k in (kq, kq, kq, kt)]
+    scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+    with pytest.raises(RuntimeError, match="pano_match_streaming"):
+        _build.launch("pano_match_streaming", q.device, q.data_ptr(),
+                      t.data_ptr(), vq.data_ptr(), vt.data_ptr(),
+                      *(o.data_ptr() for o in outs), scratch.data_ptr(),
+                      nbytes - 1, kq, kt, d)
 
 
 @pytest.mark.parametrize("proj", [False, True])

@@ -118,6 +118,47 @@ def test_match_cores_match_jax_streaming_cores():
     assert (got[3][:20] == 0).all()
 
 
+@pytest.mark.parametrize("seed", [26, 27])
+def test_match_cores_plain_exact_over_full_u8_range(seed):
+    """The exactness K3's integer tensor-core route relies on: with u8
+    entries in all 128 columns (rows at 255 and at 0 included), every
+    dot product, norm sum and SSD is an integer below 2^24, so the f32
+    plain cores equal the same cores computed in int64."""
+    rng = np.random.default_rng(seed)
+    dq = rng.integers(0, 256, (300, 128))
+    dt = rng.integers(0, 256, (437, 128))
+    dq[:8], dt[:6] = 255, 255
+    dq[8:12], dt[6:10] = 0, 0
+    dt[10:20] = dq[20:30]             # exact matches
+    dt[20:25] = dt[10:15]             # duplicated train rows: ties
+    vq, vt = rng.random(300) > 0.1, rng.random(437) > 0.1
+    vt[:6] = True
+    got = cuda_match.match_cores_plain(
+        torch.from_numpy(dq.astype(np.float32)), torch.from_numpy(vq),
+        torch.from_numpy(dt.astype(np.float32)), torch.from_numpy(vt),
+    )
+
+    big = np.iinfo(np.int64).max
+    ssd = (dq * dq).sum(1)[:, None] + (dt * dt).sum(1)[None, :] \
+        - 2 * dq @ dt.T
+    assert ssd.max() < 2**24 and (dq * dq).sum(1).max() == 128 * 255**2
+    ssd = np.where(vt[None, :], ssd, big)
+    rows = np.arange(300)
+    idx = ssd.argmin(1)
+    best = ssd[rows, idx]
+    second = np.where(np.arange(437)[None, :] == idx[:, None], big,
+                      ssd).min(1)
+    col_best = np.where(vq[:, None], ssd, big).argmin(0)
+
+    def as_f32(x):
+        return np.where(x == big, np.inf, x).astype(np.float32)
+
+    np.testing.assert_array_equal(got[0].numpy(), as_f32(best))
+    np.testing.assert_array_equal(got[1].numpy(), idx.astype(np.int32))
+    np.testing.assert_array_equal(got[2].numpy(), as_f32(second))
+    np.testing.assert_array_equal(got[3].numpy(), col_best.astype(np.int32))
+
+
 def test_match_all_invalid_train():
     rng = np.random.default_rng(24)
     dq, vq = _random_descs(rng, 64)
