@@ -20,13 +20,16 @@ failure.
    (0, 0), (1400, 37), (2800, 15), (4200, 52).
 4. kernels: each of the seven kernels against its plain PyTorch version
    on the card, at the main path's shapes, with the tolerances below
-   (K1, K2 and K3 bit-identical: torch.equal on every output); median
+   (K1, K2, K3, K4b and K6 bit-identical: torch.equal on every output,
+   beside K4b's and K6's tolerance checks); median
    time of 10 runs (CUDA events, L2 flushed; `ms`, the wrapper's host
    time included where it outlasts the flush) beside the plain version's
    and, where one PyTorch call computes the same function, that call's.
    After all of them, each kernel's device time alone (`device_ms`: the
    card warmed by ~0.2 s of memsets, a spin before each run so that it
-   is still busy while the host enqueues). K3 has no library call;
+   is still busy while the host enqueues; K4b also without the ramp
+   alpha and without the weight, K6 also with overlay). K3 has no
+   library call;
    its product alone, torch.mm in f32 with TF32 off, is timed
    beside it as a yardstick (product_ms). K4a, K4b and K5 run on the
    planted pair translation and on a mild projective H; K4b with and
@@ -145,6 +148,12 @@ FEATHER_OPS_PER_PX = 34
 # K6 feather: K5's without the left ramp (the weight is read), plus the
 #     max of the two weights.
 CHAIN_OPS_PER_PX = 27
+
+# Device times of other variants of a kernel's timed call, logged beside
+# its device_ms: K4b without the ramp alpha and without the weight, K6
+# with overlay.
+EXTRA_DEVICE_MS = ("device_ms_no_alpha", "device_ms_no_weight",
+                   "device_ms_overlay")
 
 STAGE_LINE = re.compile(r"^(.+): (\d+\.\d{3}) ms$")
 STAGES = ("Harris Corner Detection", "Harris Corner Matching",
@@ -608,7 +617,7 @@ def main() -> None:
         bound=bound(nbytes(left, got), left.shape[0] * left.shape[1]
                     * K1_OPS_PER_PX),
     )
-    device_runs.append(("K1", functools.partial(
+    device_runs.append(("K1", "device_ms", functools.partial(
         cuda_harris.harris_scores, left, hopts.k, hopts.nms_thresh), None))
     log("K1 harris_scores", shape=tuple(got.shape), **res["K1"])
 
@@ -630,7 +639,7 @@ def main() -> None:
         # The patch pixels it reads, the keypoints, the descriptors.
         bound=bound(xy_l.shape[0] * p * p * 3 + nbytes(xy_l, bv_l, got), 0),
     )
-    device_runs.append(("K2", functools.partial(
+    device_runs.append(("K2", "device_ms", functools.partial(
         cuda_gather.gather_patches, left, xy_l, bv_l, p), None))
     log("K2 gather_patches", shape=tuple(got.shape),
         valid=int(bv_l.sum()), **res["K2"])
@@ -660,7 +669,7 @@ def main() -> None:
         bound=bound(k3_bytes, k3_epilogue,
                     more=((k3_mma, INT8_TC_OPS_PER_S),)),
     )
-    device_runs.append(("K3", functools.partial(
+    device_runs.append(("K3", "device_ms", functools.partial(
         cuda_match.match_cores, desc_r, bv_r, desc_l, bv_l), None))
     log("K3 match_streaming", kq=kq, kt=kt, d=desc_r.shape[1],
         product_ms=timer(lambda: torch.mm(desc_r, desc_l.T)),
@@ -697,7 +706,7 @@ def main() -> None:
                 bound=bound(nbytes(right, left, got),
                             win_px * WARP_OPS_PER_PX),
             )
-            device_runs.append(("K4a", functools.partial(
+            device_runs.append(("K4a", "device_ms", functools.partial(
                 cuda_warp.warp_compose_overlay, *call_args), None))
 
         # K4b: the windowed warp, without and with the ramp alpha
@@ -708,6 +717,9 @@ def main() -> None:
             rgb_err = check_warp(rgb, rgb_p, geo.window, "K4b")
             w_err = float((w - w_p).abs().max())
             check(w_err <= 1e-5, f"K4b {tag} weight max |d| {w_err}")
+            check(torch.equal(rgb, rgb_p) and torch.equal(w, w_p),
+                  f"K4b {tag} has_alpha={has_alpha} differs from the plain "
+                  f"version")
             errs["K4b"].append(max(rgb_err, w_err))
             log(f"K4b {tag}", has_alpha=has_alpha, window=geo.window,
                 rgb_max_abs_err=rgb_err, weight_max_abs_err=w_err)
@@ -729,8 +741,12 @@ def main() -> None:
                 bound=bound(nbytes(right, rgb, w),
                             win_px * (WARP_OPS_PER_PX + ALPHA_OPS_PER_PX)),
             )
-            device_runs.append(("K4b", functools.partial(
+            device_runs.append(("K4b", "device_ms", functools.partial(
                 cuda_warp.warp_packed, *wargs), None))
+            device_runs.append(("K4b", "device_ms_no_alpha", functools.partial(
+                cuda_warp.warp_packed, *wargs[:3], False), None))
+            device_runs.append(("K4b", "device_ms_no_weight", functools.partial(
+                cuda_warp.warp_packed, *wargs, emit_weight=False), None))
             del sx, sy, grid, src
 
         # K5: compose the ramp-alpha window by overlay and by feather
@@ -754,7 +770,7 @@ def main() -> None:
                 bound=bound(nbytes(left, rgb, w, got),
                             win_px * FEATHER_OPS_PER_PX),
             )
-            device_runs.append(("K5", functools.partial(
+            device_runs.append(("K5", "device_ms", functools.partial(
                 cuda_compose.compose_canvas, *cargs), None))
     del got, want, desc_r, desc_l, rgb, w, rgb_p, w_p
 
@@ -794,9 +810,17 @@ def main() -> None:
             check(d <= (0 if blend == "overlay" else 1),
                   f"K6 {tag} {blend} max |d| {d}")
             check(w_err == 0.0, f"K6 {tag} {blend} weight max |d| {w_err}")
+            check(torch.equal(work[0], ref[0]) and torch.equal(work[1], ref[1]),
+                  f"K6 {tag} {blend} differs from the plain version")
             errs["K6"].append(float(d))
             log(f"K6 {tag}", blend=blend, canvas=(sh, sw), window=window,
                 max_abs_err=d, weight_max_abs_err=w_err)
+            if tag == "planted" and blend == "overlay":
+                device_runs.append(("K6", "device_ms_overlay",
+                                    functools.partial(
+                                        cuda_compose.compose_chain_canvas,
+                                        *work, *cargs),
+                                    functools.partial(prime, work)))
         if tag == "planted":  # the feather step
             res["K6"] = dict(
                 ms=timer(lambda: cuda_compose.compose_chain_canvas(
@@ -808,7 +832,7 @@ def main() -> None:
                 # pixel and weight read: 3 + 3 + 4 + 4 + 3 + 4 bytes.
                 bound=bound(win_px * 21, win_px * CHAIN_OPS_PER_PX),
             )
-            device_runs.append(("K6", functools.partial(
+            device_runs.append(("K6", "device_ms", functools.partial(
                 cuda_compose.compose_chain_canvas, *work, *cargs),
                 functools.partial(prime, work)))
     for k in ("K4a", "K4b", "K5", "K6"):
@@ -818,11 +842,15 @@ def main() -> None:
     # Device time of each kernel, taken after every `ms` above so that
     # those stay as earlier versions of this script took them: the card
     # warmed first, and a spin before each run, so that the wrapper's
-    # host time is not in the window.
+    # host time is not in the window. K4b also without the ramp alpha and
+    # K6 also with overlay (the timed calls above are the feather ones).
     timer.warm()
-    for k, fn, setup in device_runs:
-        res[k]["device_ms"] = timer(fn, setup=setup, spin=True)
-    log("device time", **{k: res[k]["device_ms"] for k in KERNELS})
+    for k, field, fn, setup in device_runs:
+        res[k][field] = timer(fn, setup=setup, spin=True)
+    log("device time", **{k: res[k]["device_ms"] for k in KERNELS},
+        K4b_no_alpha=res["K4b"]["device_ms_no_alpha"],
+        K4b_no_weight=res["K4b"]["device_ms_no_weight"],
+        K6_overlay=res["K6"]["device_ms_overlay"])
     del device_runs, fn, setup, rgb, w, work, ref, base_c, base_w
 
     mods = {"K1": (cuda_harris, "launches"), "K2": (cuda_gather, "launches"),
@@ -1075,7 +1103,8 @@ def main() -> None:
          "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
          "device_ms": res[k]["device_ms"],
          "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
-         "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"]}
+         "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"],
+         **{f: res[k][f] for f in EXTRA_DEVICE_MS if f in res[k]}}
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

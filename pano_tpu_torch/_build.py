@@ -64,9 +64,9 @@ SIGNATURES = {
     "pano_warp_compose_overlay": (
         [_V, _V, _V] + [_I] * 12 + [_F] * 9 + [_V]
     ),
-    # right, rgb, weight, hr, wr, wy0, wx0, win_h, win_w, has_alpha,
-    # emit_weight, m00..m22, stream
-    "pano_warp_packed": [_V, _V, _V] + [_I] * 8 + [_F] * 9 + [_V],
+    # right, rgb, weight, alpha table, hr, wr, wy0, wx0, win_h, win_w,
+    # has_alpha, emit_weight, m00..m22, stream
+    "pano_warp_packed": [_V] * 4 + [_I] * 8 + [_F] * 9 + [_V],
     # left, win_rgb, w_win, out, hl, wl, out_h, out_w, ty, tx,
     # wy0, wx0, wy1, wx1, feather, stream
     "pano_compose_canvas": [_V] * 4 + [_I] * 11 + [_V],

@@ -17,7 +17,9 @@ the JAX package packs beside the pixels, rounded back to 7 bits and
 divided by 127, as the TPU kernel's alpha byte is (a sub-pixel fringe with
 less than half a tap on the image weighs 0); without it, the summed
 in-bounds bilinear weight. Its plain version is ``_inverse_map`` +
-``_bilinear_sample_u8`` on the image and on that alpha plane.
+``_bilinear_sample_u8`` on the image and on that alpha plane; the kernel
+reads the plane's values from ``ramp_alpha_table``, built once per source
+shape and device.
 
 What bounds the kernels on an H100 is noted at the top of
 ``csrc/warp.cu``. Each wrapper takes its plain version for tensors on the
@@ -26,6 +28,7 @@ CPU and launches its kernel for CUDA tensors; any other device raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -134,6 +137,24 @@ def warp_packed_plain(
     return rgb, warp_ops.true_div(torch.round(a_f[..., 0]), 127.0)
 
 
+def ramp_alpha_table(h: int, w: int, device=None) -> torch.Tensor:
+    """(ceil(max(h, w) / 2) + 1,) f32: g(d) = clip(round(d / (min(h, w) /
+    2) * 127), 1, 127), the 7-bit ramp alpha of `warp_packed_plain` as a
+    function of the distance d to the nearest edge, in its operations.
+    Since g does not decrease, the alpha plane at (yi, xi) is min(g(dx),
+    g(dy)) with dx = min(xi + 1, w - xi) and dy = min(yi + 1, h - yi): K4b
+    reads it so."""
+    d = torch.arange((max(h, w) + 1) // 2 + 1, dtype=torch.float32,
+                     device=device)
+    ramp = warp_ops.true_div(d, min(h, w) / 2.0)
+    return torch.clamp(torch.round(ramp * 127.0), 1.0, 127.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _alpha_table(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return ramp_alpha_table(h, w, device)
+
+
 def warp_packed(
     right: torch.Tensor, m_inv, window: Window, has_alpha: bool = True,
     emit_weight: bool = True,
@@ -160,10 +181,13 @@ def warp_packed(
     if win_h == 0 or win_w == 0:
         return rgb, w
     hr, wr = right.shape[:2]
+    table = (_alpha_table(hr, wr, right.device)
+             if has_alpha and emit_weight else None)
     global packed_launches
     _build.launch(
         "pano_warp_packed", right.device,
         right.data_ptr(), rgb.data_ptr(), 0 if w is None else w.data_ptr(),
+        0 if table is None else table.data_ptr(),
         hr, wr, wy0, wx0, win_h, win_w, int(has_alpha), int(emit_weight),
         *warp_ops._m_floats(m_inv),
     )

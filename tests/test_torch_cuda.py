@@ -260,22 +260,50 @@ def test_stitch_pair_fast_on_gpu_matches_cpu():
 PROJ = np.array([[0.97, 0.02, 12.0], [-0.015, 1.02, 4.0], [2e-5, -1e-5, 1.0]])
 
 
+def _shift(x, y):
+    return np.array([[1.0, 0.0, x], [0.0, 1.0, y], [0.0, 0.0, 1.0]])
+
+
+# K4b cases: (source shape, canvas-from-source map, canvas window).
+WARP_PACKED_CASES = {
+    "projective": ((200, 300), PROJ, (3, 5, 240, 401)),
+    **{f"wx0%16={r}": ((200, 300), PROJ, (3, 32 + r, 240, 301 + r))
+       for r in (1, 2, 3, 5, 15)},
+    **{f"width{n}": ((200, 300), PROJ, (7, 21, 230, 21 + n))
+       for n in (1, 3, 17)},
+    "width4158": ((3117, 4156), _shift(1400.0, 37.0), (35, 1398, 3154, 5556)),
+    "one_row": ((200, 300), _shift(3.25, 2.5), (100, 1, 101, 311)),
+    "5x9": ((5, 9), _shift(1.5, 0.75), (0, 0, 9, 14)),
+    "7x1": ((7, 1), _shift(0.25, 0.5), (0, 0, 9, 4)),  # one source column
+    # The mip path's maps shrink the source (ops/mip.py: up to 2.5x here).
+    "minifying": ((600, 800), np.diag([0.4, 0.4, 1.0]) @ PROJ,
+                  (0, 0, 250, 335)),
+    # The map's denominator crosses 0 inside the window: inf and NaN
+    # source coordinates sample nothing.
+    "den_sign": ((60, 90), np.linalg.inv(np.array(
+        [[1.0, 0.0, 0.0], [0.0, 1.0, 0.0], [0.02, 0.0, -0.5]])),
+        (0, 0, 40, 60)),
+}
+
+
+@pytest.mark.parametrize("case", list(WARP_PACKED_CASES))
 @pytest.mark.parametrize("has_alpha", [False, True])
-def test_warp_packed_kernel_vs_plain(has_alpha):
-    """K4b on a projective H at an unaligned window: RGB max |d| <= 1 on
-    < 0.1% of the window, weight within 1e-5; emit_weight=False skips
-    the weight and keeps the RGB."""
+def test_warp_packed_kernel_vs_plain(has_alpha, case):
+    """K4b bit-identical to its plain version, RGB and weight: windows at
+    every 16-byte phase of the origin, widths that cut a 32-pixel run, the
+    main path's 4158-wide window, one row, a 5x9 and a one-column source,
+    a minifying map, a denominator that changes sign; emit_weight=False returns None and
+    the same RGB."""
     from pano_tpu_torch.ops import cuda_warp
 
-    right = torch.from_numpy(_img((200, 300), 58)).cuda()
-    m_inv = np.linalg.inv(PROJ)
-    window = (3, 5, 240, 401)
+    shape, m, window = WARP_PACKED_CASES[case]
+    right = torch.from_numpy(_img(shape, 58)).cuda()
+    m_inv = np.linalg.inv(m)
     rgb, w = cuda_warp.warp_packed(right, m_inv, window, has_alpha)
     rgb_p, w_p = cuda_warp.warp_packed_plain(right, m_inv, window, has_alpha)
-    d = (rgb.int() - rgb_p.int()).abs().amax(-1)
-    assert int(d.max()) <= 1
-    assert int((d != 0).sum()) < 1e-3 * 237 * 396
-    assert float((w - w_p).abs().max()) <= 1e-5
+    assert torch.equal(rgb, rgb_p)
+    assert torch.equal(w, w_p)
+    assert bool((w_p > 0).any()) and bool(rgb_p.any())
     rgb2, none = cuda_warp.warp_packed(right, m_inv, window, has_alpha,
                                        emit_weight=False)
     assert none is None and torch.equal(rgb2, rgb)
@@ -338,17 +366,34 @@ def test_feather_pair_on_gpu_matches_cpu():
     assert float((d > 3).float().mean()) < 0.01
 
 
+# K6 cases: (canvas shape, window).
+CHAIN_CASES = {
+    "aligned": ((384, 512), (128, 256, 384, 512)),
+    "unaligned": ((384, 512), (13, 29, 90, 122)),
+    **{f"wx0%16={r}": ((96, 512), (5, 64 + r, 90, 64 + r + 333))
+       for r in (1, 2, 3, 5, 15)},
+    **{f"width{n}": ((96, 512), (3, 77, 93, 77 + n)) for n in (1, 3, 17)},
+    "one_row": ((96, 512), (40, 7, 41, 500)),
+    "last_column": ((96, 512), (2, 511, 95, 512)),
+    # The strip's canvas: its row pitch of 8356 * 3 bytes is not a
+    # multiple of 16; the window of the chain step, ending on the last
+    # column, and a 4158-wide one at an odd origin.
+    "pitch8356": ((64, 8356), (3, 4196, 64, 8356)),
+    "width4158": ((64, 8356), (1, 1403, 63, 5561)),
+}
+
+
 @pytest.mark.parametrize("blend", ["overlay", "feather"])
-@pytest.mark.parametrize("window", [(128, 256, 384, 512), (13, 29, 90, 122)],
-                         ids=["aligned", "unaligned"])
-def test_compose_chain_kernel_vs_plain(blend, window):
-    """K6 in place on the card against its plain version: overlay
-    bit-identical, feather max |d| <= 1, the weight canvas exact, nothing
-    outside the window touched."""
+@pytest.mark.parametrize("case", list(CHAIN_CASES))
+def test_compose_chain_kernel_vs_plain(blend, case):
+    """K6 in place on the card bit-identical to its plain version, canvas
+    and weight canvas, with holes in the window, at every 16-byte phase
+    of the origin, narrow, one-row and last-column windows and the
+    strip's canvas; nothing outside the window touched."""
     from pano_tpu_torch.ops import cuda_compose
 
     rng = np.random.default_rng(63)
-    shape = (384, 512)
+    shape, window = CHAIN_CASES[case]
     canvas = _img(shape, 64)
     wcan = np.where(rng.random(shape) < 0.5, 0.0,
                     rng.random(shape)).astype(np.float32)
@@ -362,8 +407,7 @@ def test_compose_chain_kernel_vs_plain(blend, window):
         *[a.clone().cuda() for a in args], window, blend)
     want_c, want_w = cuda_compose.compose_chain_canvas_plain(
         *[a.clone().cuda() for a in args], window, blend)
-    d = int((got_c.int() - want_c.int()).abs().max())
-    assert d <= (0 if blend == "overlay" else 1)
+    assert torch.equal(got_c, want_c)
     assert torch.equal(got_w, want_w)
     outside = torch.ones(shape, dtype=torch.bool)
     outside[wy0:wy1, wx0:wx1] = False

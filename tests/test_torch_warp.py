@@ -214,6 +214,80 @@ def test_warp_packed_weight_without_alpha(images, m):
     np.testing.assert_array_equal(rgb, rgb2)
 
 
+def _alpha_plane(h, w):
+    """warp_packed_plain's 7-bit ramp alpha plane."""
+    return torch.clamp(torch.round(TW._edge_ramp(h, w) * 127.0), 1.0, 127.0)
+
+
+def _edge_dist(k, n):
+    """min(k + 1, n - k): the distance of row or column k to the edge."""
+    return torch.minimum(k + 1, n - k)
+
+
+# The shapes of these tests and of tests/test_torch_cuda.py, odd sides,
+# the main path's 3117x4156 and its mip levels 1 and 2.
+ALPHA_SHAPES = [(200, 300), (5, 9), (61, 91), (7, 7), (3117, 4156),
+                (1558, 2078), (779, 1039)]
+
+
+@pytest.mark.parametrize("shape", ALPHA_SHAPES,
+                         ids=[f"{h}x{w}" for h, w in ALPHA_SHAPES])
+def test_ramp_alpha_table_gives_the_alpha_plane(shape):
+    """K4b's table: g over the edge distances does not decrease, so
+    min(g(dx), g(dy)) is the alpha plane bit for bit, the g of the
+    smaller distance."""
+    h, w = shape
+    table = cuda_warp.ramp_alpha_table(h, w)
+    assert table.dtype == torch.float32
+    assert table.shape == ((max(h, w) + 1) // 2 + 1,)
+    assert bool((table[2:] >= table[1:-1]).all())
+    dy = _edge_dist(torch.arange(h), h)
+    dx = _edge_dist(torch.arange(w), w)
+    got = torch.minimum(table[dy][:, None], table[dx][None, :])
+    assert torch.equal(got, _alpha_plane(h, w))
+
+
+def _table_alpha_weight(img, m_inv, window):
+    """K4b's has_alpha weight as the kernel takes it: each in-bounds tap's
+    alpha min(g(dx), g(dy)) from the table, times its bilinear weight,
+    summed in tap order, rounded to 7 bits, divided by 127."""
+    h, w = img.shape[:2]
+    wy0, wx0, wy1, wx1 = window
+    table = cuda_warp.ramp_alpha_table(h, w)
+    sx, sy = TW._inverse_map(m_inv, wy1 - wy0, wx1 - wx0, wx0, wy0, "cpu")
+    inb = (sx > -1.0) & (sx < float(w)) & (sy > -1.0) & (sy < float(h))
+    sx = torch.where(inb, sx, 0.0)
+    sy = torch.where(inb, sy, 0.0)
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    asum = torch.zeros_like(sx)
+    for dy, dx, wgt in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)),
+                        (1, 0, (1 - fx) * fy), (1, 1, fx * fy)):
+        xi, yi = x0.long() + dx, y0.long() + dy
+        ok = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h) & inb
+        gx = table[_edge_dist(xi, w).clamp(0, len(table) - 1)]
+        gy = table[_edge_dist(yi, h).clamp(0, len(table) - 1)]
+        asum = asum + torch.where(ok, torch.minimum(gx, gy) * wgt, 0.0)
+    return TW.true_div(torch.round(asum), 127.0)
+
+
+@pytest.mark.parametrize("shape,m,window", [
+    ((200, 300), PROJECTIVE, (3, 5, 240, 401)),
+    ((5, 9), TRANSLATION, (0, 0, 12, 30)),
+    ((61, 91), np.diag([0.4, 0.45, 1.0]), (0, 0, 30, 45)),
+], ids=["projective", "5x9", "minifying"])
+def test_warp_packed_alpha_weight_from_table(shape, m, window):
+    """The weight K4b computes from the table equals warp_packed_plain's
+    sample of the alpha plane bit for bit, over interior taps and taps
+    cut by the source's edges."""
+    img = np.random.default_rng(47).integers(0, 256, shape + (3,), np.uint8)
+    m_inv = np.linalg.inv(m)
+    _, want = cuda_warp.warp_packed_plain(torch.from_numpy(img), m_inv,
+                                          window)
+    assert torch.equal(_table_alpha_weight(img, m_inv, window), want)
+    assert bool((want > 0).any()) and bool((want < 1).any())
+
+
 # --- warp_and_blend and blend_window_outputs, every blend -------------------
 
 BLENDS = [("overlay", True), ("feather", False), ("feather", True),
