@@ -20,24 +20,29 @@ failure.
    (0, 0), (1400, 37), (2800, 15), (4200, 52).
 4. kernels: each of the seven kernels against its plain PyTorch version
    on the card, at the main path's shapes, with the tolerances below
-   (K1, K2, K3, K4b and K6 bit-identical: torch.equal on every output,
-   beside K4b's and K6's tolerance checks); median
+   (every kernel bit-identical: torch.equal on every output, beside the
+   tolerance checks); K1 also at the NMS windows 5, 7, 9 (one launch of
+   the stencil) and 11, 15 (the R plane and the fold kernel), each also
+   through harris_detect, which must return keypoints; median
    time of 10 runs (CUDA events, L2 flushed; `ms`, the wrapper's host
    time included where it outlasts the flush) beside the plain version's
    and, where one PyTorch call computes the same function, that call's.
    After all of them, each kernel's device time alone (`device_ms`: the
    card warmed by ~0.2 s of memsets, a spin before each run so that it
    is still busy while the host enqueues; K4b also without the ramp
-   alpha and without the weight, K6 also with overlay). K3 has no
-   library call;
+   alpha and without the weight, K5 and K6 also with overlay, K1 at the
+   other NMS windows). K3 has no library call;
    its product alone, torch.mm in f32 with TF32 off, is timed
-   beside it as a yardstick (product_ms). K4a, K4b and K5 run on the
+   beside it as a yardstick (product_ms); K4a's and K4b's is
+   F.grid_sample of the window. K4a, K4b and K5 run on the
    planted pair translation and on a mild projective H; K4b with and
    without the ramp alpha, K5 with overlay and feather. K6 runs a step
    of the strip's chain (image 2 into the canvas that holds image 1 and
    its weight ramp), planted and projective, overlay exact and feather
    within 1, the weight canvas exact; K6 updates in place, so each timed
-   run starts from a fresh copy made outside the timed region.
+   run starts from a fresh copy made outside the timed region. Last,
+   RANSAC's default table (JAX's randint, made on the card from a device
+   n_valid) against the CPU's, and the time of one draw (draw_ms).
 5. main path (overlay): PairStitcher(DEFAULT_CONFIG, device="cuda")
    .stitch_pair_fast(left, right) with K = 8192 and 1000 hypotheses: the
    recovered H within 0.5 px of the planted one at the right image's
@@ -150,10 +155,12 @@ FEATHER_OPS_PER_PX = 34
 CHAIN_OPS_PER_PX = 27
 
 # Device times of other variants of a kernel's timed call, logged beside
-# its device_ms: K4b without the ramp alpha and without the weight, K6
-# with overlay.
+# its device_ms: K4b without the ramp alpha and without the weight, K5 and
+# K6 with overlay, K1 at its other NMS windows.
+K1_WINDOWS = (5, 7, 9, 11, 15)  # K1's other NMS windows checked and timed
 EXTRA_DEVICE_MS = ("device_ms_no_alpha", "device_ms_no_weight",
-                   "device_ms_overlay")
+                   "device_ms_overlay",
+                   *(f"device_ms_nms{n}" for n in K1_WINDOWS))
 
 STAGE_LINE = re.compile(r"^(.+): (\d+\.\d{3}) ms$")
 STAGES = ("Harris Corner Detection", "Harris Corner Matching",
@@ -620,6 +627,23 @@ def main() -> None:
     device_runs.append(("K1", "device_ms", functools.partial(
         cuda_harris.harris_scores, left, hopts.k, hopts.nms_thresh), None))
     log("K1 harris_scores", shape=tuple(got.shape), **res["K1"])
+    # The other NMS windows (the JAX CLI's --nms-size): bit-identical, and
+    # harris_detect on the card returns keypoints at each.
+    peaks = {}
+    for n in K1_WINDOWS:
+        got = cuda_harris.harris_scores(left, hopts.k, hopts.nms_thresh, n)
+        want = cuda_harris.harris_scores_plain(left, hopts.k,
+                                               hopts.nms_thresh, n)
+        check(torch.equal(got, want),
+              f"K1 NMS window {n} differs from the plain version")
+        kps = harris.harris_detect(left, dataclasses.replace(
+            hopts, nms_neighborhood=n))
+        peaks[n] = (int(torch.isfinite(got).sum()), int(kps.count()))
+        check(peaks[n][1] > 0, f"K1 NMS window {n}: no keypoints")
+        device_runs.append(("K1", f"device_ms_nms{n}", functools.partial(
+            cuda_harris.harris_scores, left, hopts.k, hopts.nms_thresh, n),
+            None))
+    log("K1 NMS windows", peaks_and_keypoints=peaks)
 
     kps_l = harris.harris_detect(left, hopts)
     kps_r = harris.harris_detect(right, hopts)
@@ -695,14 +719,31 @@ def main() -> None:
         got = cuda_warp.warp_compose_overlay(*call_args)
         want = cuda_warp.warp_compose_overlay_plain(*call_args)
         errs["K4a"].append(check_warp(got, want, geo.window))
+        check(torch.equal(got, want),
+              f"K4a {tag} differs from the plain version")
         log(f"K4a {tag}", canvas=(geo.canvas_h, geo.canvas_w),
             window=geo.window, max_abs_err=errs["K4a"][-1])
         if tag == "planted":
+            # The library yardstick of K4a and K4b: grid_sample (bilinear,
+            # zero border) of the f32 NCHW image on the precomputed
+            # sampling grid: the window's RGB sample alone, unrounded,
+            # without the map, the weight, the overlay or the canvas.
+            sx, sy = warp_ops._inverse_map(geo.m_inv, wy1 - wy0, wx1 - wx0,
+                                           wx0, wy0, right.device)
+            grid = torch.stack([sx / (W_IMG - 1) * 2 - 1,
+                                sy / (H_IMG - 1) * 2 - 1], -1)[None]
+            src = right.permute(2, 0, 1)[None].float().contiguous()
+
+            def grid_sample():
+                return F.grid_sample(src, grid, mode="bilinear",
+                                     padding_mode="zeros",
+                                     align_corners=True)
+
             res["K4a"] = dict(
                 ms=timer(lambda: cuda_warp.warp_compose_overlay(*call_args)),
                 plain_ms=timer(
                     lambda: cuda_warp.warp_compose_overlay_plain(*call_args)),
-                library_ms=None,
+                library_ms=timer(grid_sample),
                 bound=bound(nbytes(right, left, got),
                             win_px * WARP_OPS_PER_PX),
             )
@@ -724,20 +765,10 @@ def main() -> None:
             log(f"K4b {tag}", has_alpha=has_alpha, window=geo.window,
                 rgb_max_abs_err=rgb_err, weight_max_abs_err=w_err)
         if tag == "planted":
-            # The library yardstick: grid_sample (bilinear, zero border) of
-            # the f32 NCHW image on the precomputed sampling grid: the RGB
-            # sample alone, unrounded, without the map or the weight.
-            sx, sy = warp_ops._inverse_map(geo.m_inv, wy1 - wy0, wx1 - wx0,
-                                           wx0, wy0, right.device)
-            grid = torch.stack([sx / (W_IMG - 1) * 2 - 1,
-                                sy / (H_IMG - 1) * 2 - 1], -1)[None]
-            src = right.permute(2, 0, 1)[None].float().contiguous()
             res["K4b"] = dict(
                 ms=timer(lambda: cuda_warp.warp_packed(*wargs)),
                 plain_ms=timer(lambda: cuda_warp.warp_packed_plain(*wargs)),
-                library_ms=timer(lambda: F.grid_sample(
-                    src, grid, mode="bilinear", padding_mode="zeros",
-                    align_corners=True)),
+                library_ms=timer(grid_sample),
                 bound=bound(nbytes(right, rgb, w),
                             win_px * (WARP_OPS_PER_PX + ALPHA_OPS_PER_PX)),
             )
@@ -758,9 +789,16 @@ def main() -> None:
             d = int((got.int() - want.int()).abs().max())
             check(d <= (0 if blend == "overlay" else 1),
                   f"K5 {tag} {blend} max |d| {d}")
+            check(torch.equal(got, want),
+                  f"K5 {tag} {blend} differs from the plain version")
             errs["K5"].append(float(d))
             log(f"K5 {tag}", blend=blend, canvas=(geo.canvas_h, geo.canvas_w),
                 max_abs_err=d)
+            if tag == "planted" and blend == "overlay":
+                device_runs.append(("K5", "device_ms_overlay",
+                                    functools.partial(
+                                        cuda_compose.compose_canvas, *cargs),
+                                    None))
         if tag == "planted":
             res["K5"] = dict(
                 ms=timer(lambda: cuda_compose.compose_canvas(*cargs)),
@@ -850,8 +888,30 @@ def main() -> None:
     log("device time", **{k: res[k]["device_ms"] for k in KERNELS},
         K4b_no_alpha=res["K4b"]["device_ms_no_alpha"],
         K4b_no_weight=res["K4b"]["device_ms_no_weight"],
-        K6_overlay=res["K6"]["device_ms_overlay"])
+        K5_overlay=res["K5"]["device_ms_overlay"],
+        K6_overlay=res["K6"]["device_ms_overlay"],
+        **{f"K1_nms{n}": res["K1"][f"device_ms_nms{n}"] for n in K1_WINDOWS})
     del device_runs, fn, setup, rgb, w, work, ref, base_c, base_w
+
+    # RANSAC's default table, JAX's randint, made on the card from a
+    # device n_valid: the CPU's, for every span the pair can give.
+    from pano_tpu_torch.ops import ransac
+
+    r_opts = DEFAULT_CONFIG.ransac
+    shape = (r_opts.num_iterations, r_opts.num_samples)
+    on_card = ransac.default_sampler(*shape, r_opts.seed, DEVICE)
+    on_cpu = ransac.default_sampler(*shape, r_opts.seed, "cpu")
+    spans = (0, 1, 7, 1000, 4097, hopts.max_keypoints)
+    for n_valid in spans:
+        got = on_card(torch.tensor(n_valid, dtype=torch.int32, device=DEVICE))
+        check(got.device.type == DEVICE and torch.equal(
+            got.cpu(), on_cpu(torch.tensor(n_valid, dtype=torch.int32))),
+            f"RANSAC's default table on the card differs at n_valid "
+            f"{n_valid}")
+    nv = torch.tensor(hopts.max_keypoints, dtype=torch.int32, device=DEVICE)
+    log("RANSAC default table", shape=shape, seed=r_opts.seed,
+        n_valid=spans, equal_to_cpu=True,
+        draw_ms=timer(lambda: on_card(nv)))
 
     mods = {"K1": (cuda_harris, "launches"), "K2": (cuda_gather, "launches"),
             "K3": (cuda_match, "launches"), "K4a": (cuda_warp, "launches"),

@@ -8,8 +8,9 @@ JAX package ``pano_tpu``, which stays the reference. This package imports
 no JAX.
 
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, stitch_all_images
-    pano = PairStitcher(DEFAULT_CONFIG, device="cuda").stitch_pair_fast(
-        left_bgr_u8, right_bgr_u8)
+    pano = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                        device="cuda").stitch_pair_fast(left_bgr_u8,
+                                                        right_bgr_u8)
     pano = stitch_all_images(images, DEFAULT_CONFIG, mode="chain",
                              device="cuda")   # host uint8 BGR
 """

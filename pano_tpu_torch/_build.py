@@ -49,8 +49,9 @@ _L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (restype is always int).
 SIGNATURES = {
-    # img, out, h, w, k, thresh, g0, g1, g2, stream
-    "pano_harris_scores": [_V, _V, _I, _I, _F, _F, _F, _F, _F, _V],
+    # img, out, R plane scratch, h, w, nms window, k, thresh, g0, g1, g2,
+    # stream
+    "pano_harris_scores": [_V, _V, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V],
     # img, xy, border_valid, desc, h, w, k, p, d_pad, stream
     "pano_gather_patches": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _V],
     # q, t, vq, vt, best, idx, second, col_best, scratch, scratch_bytes,
@@ -67,9 +68,9 @@ SIGNATURES = {
     # right, rgb, weight, alpha table, hr, wr, wy0, wx0, win_h, win_w,
     # has_alpha, emit_weight, m00..m22, stream
     "pano_warp_packed": [_V] * 4 + [_I] * 8 + [_F] * 9 + [_V],
-    # left, win_rgb, w_win, out, hl, wl, out_h, out_w, ty, tx,
+    # left, win_rgb, w_win, ramp table, out, hl, wl, out_h, out_w, ty, tx,
     # wy0, wx0, wy1, wx1, feather, stream
-    "pano_compose_canvas": [_V] * 4 + [_I] * 11 + [_V],
+    "pano_compose_canvas": [_V] * 5 + [_I] * 11 + [_V],
     # canvas, weight_canvas, win_rgb, w_win, canvas_w, wy0, wx0, win_h,
     # win_w, feather, stream
     "pano_compose_chain_canvas": [_V] * 4 + [_I] * 6 + [_V],

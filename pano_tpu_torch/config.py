@@ -61,9 +61,8 @@ class RansacOptions:
     num_iterations: int = 1000      # hypothesis count
     num_samples: int = 4            # minimal sample size
     distance_threshold: float = 3.0  # inlier reprojection distance in px
-    seed: int = 0                   # torch.Generator seed (the JAX package
-    #                                 seeds jax.random with it; the two
-    #                                 draw different samples)
+    seed: int = 0                   # PRNGKey seed of the hypotheses'
+    #                                 draw, the JAX package's own table
     refine: bool = True             # least-squares re-fit on the inliers
     min_inliers: int = 10           # quality gate before trusting the model
 

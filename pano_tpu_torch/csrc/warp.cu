@@ -29,98 +29,34 @@
 // tilt envelope and no tile alignment: any finite homography and any
 // window are served, and "non-black" is any channel != 0.
 //
-// What bounds them on an H100: memory traffic at best. K4a writes a
-// 3154x5556 canvas (53 MB) and reads up to the same of left and right
-// pixels (the right image's four taps mostly hit L1/L2); K4b reads the
-// right image (39 MB) and writes a window of about the same size in RGB
-// (39 MB) and in f32 weight (52 MB): ~0.13 GB, 39 us at 3.35 TB/s, against
-// ~60 flops a pixel and as many more instructions of addressing, loads
-// and conversions. K4a: one thread per output pixel (all three
-// channels), 32-wide rows per warp, so the u8 stores coalesce. K4b's
-// design is noted at its kernel below. Built with -fmad=false, the
-// arithmetic rounds exactly like the plain versions
-// (ops/warp.py::warp_and_blend, ops/cuda_warp.py::warp_packed_plain).
-#include "common.cuh"
+// What bounds them on an H100: the issue rate of the exact sample, not
+// bytes. K4a writes a 3154x5556 canvas (53 MB) and reads the left image
+// (39 MB) and the right (39 MB; its four taps mostly hit L1/L2): ~0.13
+// GB, 39 us at 3.35 TB/s; K4b reads the right image and writes a window
+// of about its size in RGB (39 MB) and in f32 weight (52 MB), as much.
+// The sample takes about two hundred instructions a pixel (see K4b's
+// notes below), several times those bytes' time. Both kernels run the
+// same sample, sample_px, designed around that; K4a adds a byte stream
+// around it (see its kernel). Built with -fmad=false, the arithmetic
+// rounds exactly like the plain versions (ops/warp.py::warp_and_blend,
+// ops/cuda_warp.py::warp_packed_plain).
+#include "canvas.cuh"
 
 namespace {
 
-constexpr int BX = 32, BY = 8;
-
-__global__ void __launch_bounds__(BX* BY)
-warp_compose_overlay_kernel(const uint8_t* __restrict__ right,
-                            const uint8_t* __restrict__ left,
-                            uint8_t* __restrict__ out, int hr, int wr, int hl,
-                            int wl, int out_h, int out_w, int ty, int tx,
-                            int wy0, int wx0, int wy1, int wx1, float m00,
-                            float m01, float m02, float m10, float m11,
-                            float m12, float m20, float m21, float m22) {
-  const int x = blockIdx.x * BX + threadIdx.x;
-  const int y = blockIdx.y * BY + threadIdx.y;
-  if (x >= out_w || y >= out_h) return;
-
-  uint8_t px[3] = {0, 0, 0};
-  const int ly = y - ty, lx = x - tx;
-  if (ly >= 0 && ly < hl && lx >= 0 && lx < wl) {
-    const uint8_t* p = left + (static_cast<size_t>(ly) * wl + lx) * 3;
-    px[0] = p[0];
-    px[1] = p[1];
-    px[2] = p[2];
-  }
-
-  if (y >= wy0 && y < wy1 && x >= wx0 && x < wx1) {
-    const float xs = static_cast<float>(x), ys = static_cast<float>(y);
-    const float den = m20 * xs + m21 * ys + m22;
-    const float sx = (m00 * xs + m01 * ys + m02) / den;
-    const float sy = (m10 * xs + m11 * ys + m12) / den;
-    // Every tap misses the image unless -1 < s < dim (NaN included).
-    if (sx > -1.0f && sx < static_cast<float>(wr) && sy > -1.0f &&
-        sy < static_cast<float>(hr)) {
-      const float x0 = floorf(sx), y0 = floorf(sy);
-      const float fx = sx - x0, fy = sy - y0;
-      const int x0i = static_cast<int>(x0), y0i = static_cast<int>(y0);
-      const float wt[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
-                           (1.0f - fx) * fy, fx * fy};
-      float acc[3] = {0.0f, 0.0f, 0.0f};
-#pragma unroll
-      for (int tap = 0; tap < 4; ++tap) {
-        const int xi = x0i + (tap & 1), yi = y0i + (tap >> 1);
-        if (xi >= 0 && xi < wr && yi >= 0 && yi < hr) {
-          const uint8_t* p = right + (static_cast<size_t>(yi) * wr + xi) * 3;
-#pragma unroll
-          for (int c = 0; c < 3; ++c)
-            acc[c] = acc[c] + static_cast<float>(p[c]) * wt[tap];
-        }
-      }
-      uint8_t wp[3];
-#pragma unroll
-      for (int c = 0; c < 3; ++c)
-        wp[c] = static_cast<uint8_t>(fminf(fmaxf(rintf(acc[c]), 0.0f), 255.0f));
-      if (wp[0] | wp[1] | wp[2]) {
-        px[0] = wp[0];
-        px[1] = wp[1];
-        px[2] = wp[2];
-      }
-    }
-  }
-  uint8_t* o = out + (static_cast<size_t>(y) * out_w + x) * 3;
-  o[0] = px[0];
-  o[1] = px[1];
-  o[2] = px[2];
-}
-
-
-// K4b. What bounds it on an H100: the issue rate, not bytes. The exact
-// sample costs about two hundred instructions a pixel: the map's two IEEE
-// divisions, twelve byte-to-float conversions, twelve products and their
-// sums in tap order, the rounding; the weight adds the alpha's and one
-// more division. At one instruction a clock per scheduler that is several
-// times the 39 us the 0.13 GB take at 3.35 TB/s. The design takes out
-// every instruction the exact result does not need:
+// The exact sample (sample_px, K4a and K4b). What bounds it on an H100:
+// the issue rate, not bytes. It costs about two hundred instructions a
+// pixel: the map's two IEEE divisions, twelve byte-to-float conversions,
+// twelve products and their sums in tap order, the rounding; K4b's
+// weight adds the alpha's and one more division. At one instruction a
+// clock per scheduler that is several times the 39 us the 0.13 GB take
+// at 3.35 TB/s. The design takes out every instruction the exact result
+// does not need:
 //
 // - The window as a flat array of pixels: lane l of a warp samples pixel
 //   base + l of each run of 32, so a warp's taps of one source row are
-//   adjacent bytes, and each thread steps its (i, j) by 32 pixels with no
-//   division (one at its start) and updates the map's row terms
+//   adjacent bytes, and each thread steps its (i, j) by a fixed stride
+//   with no division (one at its start) and updates the map's row terms
 //   (m01 * ys etc.) only when its row changes. 32-bit indices.
 // - The ramp alpha from a table: alpha(xi, yi) = g(min(dx, dy)) with
 //   dx = min(xi+1, w-xi), dy = min(yi+1, h-yi) and g(d) =
@@ -135,37 +71,26 @@ warp_compose_overlay_kernel(const uint8_t* __restrict__ right,
 //   bytes become floats by the 2^23 trick, floor is a round-down add of
 //   1.5 * 2^23 whose bits give the integer, and rint, the clip and the u8
 //   are an add of 2^23 after the clip (exact: see the helpers).
-// - The outputs leave as the plain byte and f32 stores: the kernel is not
-//   held by bytes, and assembling wider RGB stores across lanes took more
-//   instructions than it saved.
+// - K4b's outputs leave as the plain byte and f32 stores: the kernel is
+//   not held by bytes, and assembling wider RGB stores across lanes took
+//   more instructions than it saved.
 //
 // The sample's formulas and their order stay the plain version's: the map
 // (m00*xs + m01*ys) + m02 and its IEEE divisions, the tap weights, each
 // sum in tap order, rint and the clip, rint(asum) / 127.
 constexpr int PACKED_THREADS = 256;
 constexpr int PACKED_RUNS = 8;  // runs of 32 pixels per warp
+static_assert(PACKED_THREADS == CANVAS_THREADS,
+              "K4a's stream blocks stride by CANVAS_THREADS");
 
-// Exact f32 tricks that keep the 1/8-rate conversion pipe free: 2^23 + v
-// is exact with the bits 0x4B000000 + v for an integer v in [0, 2^23), and
+// More exact f32 tricks (int_f, u8_bits and TWO23 are in canvas.cuh):
 // x + 1.5 * 2^23 lands on an integer for x in (-2^22, 2^22), rounded as
 // the add is rounded.
-constexpr float TWO23 = 8388608.0f;
 constexpr float TWO23_15 = 12582912.0f;  // 1.5 * 2^23, bits 0x4B400000
-
-// An integer in [0, 2^23) as a float.
-__device__ __forceinline__ float int_f(int v) {
-  return __int_as_float(0x4B000000 + v) - TWO23;
-}
 
 // Byte k (0-3) of v as a float.
 __device__ __forceinline__ float byte_f(uint32_t v, int k) {
   return __int_as_float(__byte_perm(v, 0x4B000000u, 0x7440u | k)) - TWO23;
-}
-
-// The bits of 2^23 + clip(rint(v), 0, 255): its low byte is the u8 (the
-// add rounds half to even, as rintf; the clip commutes with rounding).
-__device__ __forceinline__ uint32_t u8_bits(float v) {
-  return __float_as_uint(fminf(fmaxf(v, 0.0f), 255.0f) + TWO23);
 }
 
 // The 6 bytes at p (two adjacent pixels) as the low 6 bytes of lo:hi,
@@ -187,14 +112,90 @@ __device__ __forceinline__ float ramp_g(const float* __restrict__ table,
   return __ldg(table + min(k + 1, n - k));
 }
 
+// The canvas-to-source map m_inv.
+struct Map {
+  float m00, m01, m02, m10, m11, m12, m20, m21, m22;
+};
+
+// The exact sample of `right` at canvas column xs of the row whose map
+// terms are r0 = m01 * ys, r1 = m11 * ys, r2 = m21 * ys: the three
+// channels' sums in tap order (acc), the in-bounds tap weight (wsum) and,
+// with has_alpha, the ramp alpha's sum (asum); all 0 where every tap
+// misses the image. Forced inline: a caller that passes has_alpha = 0 and
+// drops wsum keeps none of their instructions.
+__device__ __forceinline__ void sample_px(
+    const uint8_t* __restrict__ right, const float* __restrict__ table,
+    int hr, int wr, float fhr, float fwr, int has_alpha, const Map& m,
+    float xs, float r0, float r1, float r2, float& acc0, float& acc1,
+    float& acc2, float& wsum, float& asum) {
+  const float den = m.m20 * xs + r2 + m.m22;
+  const float sx = (m.m00 * xs + r0 + m.m02) / den;
+  const float sy = (m.m10 * xs + r1 + m.m12) / den;
+  acc0 = acc1 = acc2 = wsum = asum = 0.0f;
+  // Every tap misses the image unless -1 < s < dim (NaN included).
+  if (!(sx > -1.0f && sx < fwr && sy > -1.0f && sy < fhr)) return;
+  // floor(s) by a round-down add; its integer from the sum's bits.
+  const float tx = __fadd_rd(sx, TWO23_15);
+  const float ty = __fadd_rd(sy, TWO23_15);
+  const float fx = sx - (tx - TWO23_15), fy = sy - (ty - TWO23_15);
+  const int x0i = __float_as_int(tx) - 0x4B400000;
+  const int y0i = __float_as_int(ty) - 0x4B400000;
+  const float wt[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
+                       (1.0f - fx) * fy, fx * fy};
+  if (x0i >= 0 && x0i + 1 < wr && y0i >= 0 && y0i + 1 < hr) {
+    const uint8_t* p = right + static_cast<unsigned>(y0i * wr + x0i) * 3u;
+    uint32_t w[4];  // row y0i, then row y0i + 1
+    load6(p, w[0], w[1]);
+    load6(p + static_cast<unsigned>(wr) * 3u, w[2], w[3]);
+    // Every product is >= +0, so each sum starts at its first term, as
+    // the plain version's does.
+    acc0 = byte_f(w[0], 0) * wt[0];
+    acc1 = byte_f(w[0], 1) * wt[0];
+    acc2 = byte_f(w[0], 2) * wt[0];
+    wsum = wt[0];
+#pragma unroll
+    for (int tap = 1; tap < 4; ++tap) {
+      // Byte b of the row's 6: tap (_, 0) bytes 0-2, (_, 1) 3-5.
+      const int r = 2 * (tap >> 1), b = 3 * (tap & 1);
+      acc0 = acc0 + byte_f(w[r + b / 4], b % 4) * wt[tap];
+      acc1 = acc1 + byte_f(w[r + (b + 1) / 4], (b + 1) % 4) * wt[tap];
+      acc2 = acc2 + byte_f(w[r + (b + 2) / 4], (b + 2) % 4) * wt[tap];
+      wsum = wsum + wt[tap];
+    }
+    if (has_alpha) {
+      const float gx0 = ramp_g(table, x0i, wr);
+      const float gx1 = ramp_g(table, x0i + 1, wr);
+      const float gy0 = ramp_g(table, y0i, hr);
+      const float gy1 = ramp_g(table, y0i + 1, hr);
+      asum = fminf(gx0, gy0) * wt[0];
+      asum = asum + fminf(gx1, gy0) * wt[1];
+      asum = asum + fminf(gx0, gy1) * wt[2];
+      asum = asum + fminf(gx1, gy1) * wt[3];
+    }
+  } else {  // the source's edge cuts the taps
+#pragma unroll
+    for (int tap = 0; tap < 4; ++tap) {
+      const int xi = x0i + (tap & 1), yi = y0i + (tap >> 1);
+      if (xi >= 0 && xi < wr && yi >= 0 && yi < hr) {
+        const uint8_t* p = right + static_cast<unsigned>(yi * wr + xi) * 3u;
+        acc0 = acc0 + static_cast<float>(p[0]) * wt[tap];
+        acc1 = acc1 + static_cast<float>(p[1]) * wt[tap];
+        acc2 = acc2 + static_cast<float>(p[2]) * wt[tap];
+        wsum = wsum + wt[tap];
+        if (has_alpha)
+          asum = asum + fminf(ramp_g(table, xi, wr),
+                              ramp_g(table, yi, hr)) * wt[tap];
+      }
+    }
+  }
+}
+
 __global__ void __launch_bounds__(PACKED_THREADS)
 warp_packed_kernel(const uint8_t* __restrict__ right,
                    uint8_t* __restrict__ rgb, float* __restrict__ weight,
                    const float* __restrict__ table, int hr, int wr,
                    float fhr, float fwr, int wy0, int wx0, int win_w,
-                   unsigned total, int has_alpha, float m00, float m01,
-                   float m02, float m10, float m11, float m12, float m20,
-                   float m21, float m22) {
+                   unsigned total, int has_alpha, const Map m) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned warp_base =
       (blockIdx.x * (PACKED_THREADS / 32) + (threadIdx.x >> 5)) *
@@ -205,74 +206,12 @@ warp_packed_kernel(const uint8_t* __restrict__ right,
   int j = static_cast<int>(o) - i * win_w;
   // The map's row terms, m01 * ys etc., change only with the row.
   float ys = int_f(wy0 + i);
-  float r0 = m01 * ys, r1 = m11 * ys, r2 = m21 * ys;
+  float r0 = m.m01 * ys, r1 = m.m11 * ys, r2 = m.m21 * ys;
 
   for (int run = 0; run < PACKED_RUNS && o < total; ++run) {
-    const float xs = int_f(wx0 + j);
-    const float den = m20 * xs + r2 + m22;
-    const float sx = (m00 * xs + r0 + m02) / den;
-    const float sy = (m10 * xs + r1 + m12) / den;
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f;
-    float wsum = 0.0f, asum = 0.0f;
-    // Every tap misses the image unless -1 < s < dim (NaN included).
-    if (sx > -1.0f && sx < fwr && sy > -1.0f && sy < fhr) {
-      // floor(s) by a round-down add; its integer from the sum's bits.
-      const float tx = __fadd_rd(sx, TWO23_15);
-      const float ty = __fadd_rd(sy, TWO23_15);
-      const float fx = sx - (tx - TWO23_15), fy = sy - (ty - TWO23_15);
-      const int x0i = __float_as_int(tx) - 0x4B400000;
-      const int y0i = __float_as_int(ty) - 0x4B400000;
-      const float wt[4] = {(1.0f - fx) * (1.0f - fy), fx * (1.0f - fy),
-                           (1.0f - fx) * fy, fx * fy};
-      if (x0i >= 0 && x0i + 1 < wr && y0i >= 0 && y0i + 1 < hr) {
-        const uint8_t* p =
-            right + static_cast<unsigned>(y0i * wr + x0i) * 3u;
-        uint32_t w[4];  // row y0i, then row y0i + 1
-        load6(p, w[0], w[1]);
-        load6(p + static_cast<unsigned>(wr) * 3u, w[2], w[3]);
-        // Every product is >= +0, so each sum starts at its first term,
-        // as the plain version's does.
-        acc0 = byte_f(w[0], 0) * wt[0];
-        acc1 = byte_f(w[0], 1) * wt[0];
-        acc2 = byte_f(w[0], 2) * wt[0];
-        wsum = wt[0];
-#pragma unroll
-        for (int tap = 1; tap < 4; ++tap) {
-          // Byte b of the row's 6: tap (_, 0) bytes 0-2, (_, 1) 3-5.
-          const int r = 2 * (tap >> 1), b = 3 * (tap & 1);
-          acc0 = acc0 + byte_f(w[r + b / 4], b % 4) * wt[tap];
-          acc1 = acc1 + byte_f(w[r + (b + 1) / 4], (b + 1) % 4) * wt[tap];
-          acc2 = acc2 + byte_f(w[r + (b + 2) / 4], (b + 2) % 4) * wt[tap];
-          wsum = wsum + wt[tap];
-        }
-        if (has_alpha) {
-          const float gx0 = ramp_g(table, x0i, wr);
-          const float gx1 = ramp_g(table, x0i + 1, wr);
-          const float gy0 = ramp_g(table, y0i, hr);
-          const float gy1 = ramp_g(table, y0i + 1, hr);
-          asum = fminf(gx0, gy0) * wt[0];
-          asum = asum + fminf(gx1, gy0) * wt[1];
-          asum = asum + fminf(gx0, gy1) * wt[2];
-          asum = asum + fminf(gx1, gy1) * wt[3];
-        }
-      } else {  // the source's edge cuts the taps
-#pragma unroll
-        for (int tap = 0; tap < 4; ++tap) {
-          const int xi = x0i + (tap & 1), yi = y0i + (tap >> 1);
-          if (xi >= 0 && xi < wr && yi >= 0 && yi < hr) {
-            const uint8_t* p =
-                right + static_cast<unsigned>(yi * wr + xi) * 3u;
-            acc0 = acc0 + static_cast<float>(p[0]) * wt[tap];
-            acc1 = acc1 + static_cast<float>(p[1]) * wt[tap];
-            acc2 = acc2 + static_cast<float>(p[2]) * wt[tap];
-            wsum = wsum + wt[tap];
-            if (has_alpha)
-              asum = asum + fminf(ramp_g(table, xi, wr),
-                                  ramp_g(table, yi, hr)) * wt[tap];
-          }
-        }
-      }
-    }
+    float acc0, acc1, acc2, wsum, asum;
+    sample_px(right, table, hr, wr, fhr, fwr, has_alpha, m,
+              int_f(wx0 + j), r0, r1, r2, acc0, acc1, acc2, wsum, asum);
     uint8_t* const out = rgb + o * 3u;
     out[0] = static_cast<uint8_t>(u8_bits(acc0));
     out[1] = static_cast<uint8_t>(u8_bits(acc1));
@@ -288,27 +227,114 @@ warp_packed_kernel(const uint8_t* __restrict__ right,
         ++i;
       } while (j >= win_w);
       ys = int_f(wy0 + i);
-      r0 = m01 * ys;
-      r1 = m11 * ys;
-      r2 = m21 * ys;
+      r0 = m.m01 * ys;
+      r1 = m.m11 * ys;
+      r2 = m.m21 * ys;
+    }
+  }
+}
+
+// K4a: the canvas by the two kinds of block of canvas.cuh. A window block
+// is K4b's: flat runs of 32 window pixels a warp, PACKED_RUNS of them,
+// each sampled with sample_px (no alpha, no weight) and its 3 bytes
+// stored into the canvas: the sample where it is non-black, else the
+// base there (the left image's pixel, or zeros). The stream blocks write
+// every other canvas byte; their memory traffic runs beside the window
+// blocks' arithmetic, which holds the kernel at the sample's issue rate,
+// as K4b's without the weight.
+__global__ void __launch_bounds__(PACKED_THREADS)
+warp_overlay_canvas_kernel(const uint8_t* __restrict__ right,
+                           const uint8_t* __restrict__ left,
+                           uint8_t* __restrict__ out, int hr, int wr,
+                           float fhr, float fwr, const CanvasGeo g,
+                           const Map m, unsigned n_win, unsigned n_stream) {
+  unsigned index;
+  if (block_kind(blockIdx.x, n_win, n_stream, index)) {
+    stream_row(out, left, g, static_cast<int>(index));
+    return;
+  }
+  const unsigned total = static_cast<unsigned>(g.win_h) * g.win_w;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned warp_base =
+      (index * (PACKED_THREADS / 32) + (threadIdx.x >> 5)) *
+      (32 * PACKED_RUNS);
+  if (warp_base >= total) return;  // the whole warp
+  unsigned o = warp_base + lane;
+  int i = static_cast<int>(o / static_cast<unsigned>(g.win_w));
+  int j = static_cast<int>(o) - i * g.win_w;
+  float ys = int_f(g.wy0 + i);
+  float r0 = m.m01 * ys, r1 = m.m11 * ys, r2 = m.m21 * ys;
+
+  for (int run = 0; run < PACKED_RUNS && o < total; ++run) {
+    float acc0, acc1, acc2, wsum, asum;
+    sample_px(right, nullptr, hr, wr, fhr, fwr, 0, m, int_f(g.wx0 + j), r0,
+              r1, r2, acc0, acc1, acc2, wsum, asum);
+    uint32_t b0 = u8_bits(acc0), b1 = u8_bits(acc1), b2 = u8_bits(acc2);
+    const int y = g.wy0 + i, x = g.wx0 + j;
+    if (((b0 | b1 | b2) & 0xffu) == 0) {  // black: the base shows
+      const int ly = y - g.ty, lx = x - g.tx;
+      if (ly >= 0 && ly < g.hl && lx >= 0 && lx < g.wl) {
+        const uint8_t* p = left + 3 * (ly * g.wl + lx);
+        b0 = p[0];
+        b1 = p[1];
+        b2 = p[2];
+      }
+    }
+    uint8_t* const c = out + 3 * (y * g.out_w + x);
+    c[0] = static_cast<uint8_t>(b0);
+    c[1] = static_cast<uint8_t>(b1);
+    c[2] = static_cast<uint8_t>(b2);
+    o += 32;
+    j += 32;
+    if (j >= g.win_w) {
+      do {
+        j -= g.win_w;
+        ++i;
+      } while (j >= g.win_w);
+      ys = int_f(g.wy0 + i);
+      r0 = m.m01 * ys;
+      r1 = m.m11 * ys;
+      r2 = m.m21 * ys;
     }
   }
 }
 
 }  // namespace
 
+// The limits of the kernels' 32-bit indices and exact f32 tricks:
+// canvas coordinates below 2^23, source sides below 2^22.
+static bool sample_fits(int hr, int wr, long long canvas_h,
+                        long long canvas_w) {
+  return static_cast<long long>(hr) * wr * 3 <= 0xffffffffLL &&
+         hr < (1 << 22) && wr < (1 << 22) && canvas_h <= (1 << 23) &&
+         canvas_w <= (1 << 23);
+}
+
 PANO_API int pano_warp_compose_overlay(
     const void* right, const void* left, void* out, int hr, int wr, int hl,
     int wl, int out_h, int out_w, int ty, int tx, int wy0, int wx0, int wy1,
     int wx1, float m00, float m01, float m02, float m10, float m11, float m12,
     float m20, float m21, float m22, void* stream) {
-  const dim3 grid(pano_cdiv(out_w, BX), pano_cdiv(out_h, BY));
-  const dim3 block(BX, BY);
-  warp_compose_overlay_kernel<<<grid, block, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
+  // The stream blocks' 16-byte words need a 16-byte aligned canvas; the
+  // indices are ints.
+  const long long total = static_cast<long long>(out_h) * out_w;
+  if ((reinterpret_cast<uintptr_t>(out) & 15) != 0 ||
+      total * 3 + 16 > 0x7fffffffLL ||
+      static_cast<long long>(hl) * wl * 3 > 0x7fffffffLL ||
+      !sample_fits(hr, wr, out_h, out_w))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (total <= 0) return 0;
+  const CanvasGeo g{out_w, hl, wl, ty, tx, wy0, wx0, wy1 - wy0, wx1 - wx0};
+  const long long per_block = 32LL * PACKED_RUNS * (PACKED_THREADS / 32);
+  const unsigned n_win = static_cast<unsigned>(
+      (static_cast<long long>(g.win_h) * g.win_w + per_block - 1) / per_block);
+  warp_overlay_canvas_kernel<<<n_win + out_h, PACKED_THREADS, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(right), static_cast<const uint8_t*>(left),
-      static_cast<uint8_t*>(out), hr, wr, hl, wl, out_h, out_w, ty, tx, wy0,
-      wx0, wy1, wx1, m00, m01, m02, m10, m11, m12, m20, m21, m22);
+      static_cast<uint8_t*>(out), hr, wr, static_cast<float>(hr),
+      static_cast<float>(wr), g,
+      Map{m00, m01, m02, m10, m11, m12, m20, m21, m22}, n_win,
+      static_cast<unsigned>(out_h));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -321,13 +347,9 @@ PANO_API int pano_warp_packed(const void* right, void* rgb, void* weight,
                               float m02, float m10, float m11, float m12,
                               float m20, float m21, float m22, void* stream) {
   has_alpha = has_alpha && emit_weight;  // the alpha feeds the weight only
-  // The kernel's indices are 32-bit and its exact f32 tricks need canvas
-  // coordinates below 2^23 and source sides below 2^22.
   const long long total = static_cast<long long>(win_h) * win_w;
   if ((has_alpha && table == nullptr) || total * 3 > 0xffffffffLL ||
-      static_cast<long long>(hr) * wr * 3 > 0xffffffffLL ||
-      hr >= (1 << 22) || wr >= (1 << 22) || wy0 + win_h > (1 << 23) ||
-      wx0 + win_w > (1 << 23))
+      !sample_fits(hr, wr, wy0 + win_h, wx0 + win_w))
     return static_cast<int>(cudaErrorInvalidValue);
   if (total <= 0) return 0;
   const long long per_block = 32LL * PACKED_RUNS * (PACKED_THREADS / 32);
@@ -339,7 +361,7 @@ PANO_API int pano_warp_packed(const void* right, void* rgb, void* weight,
       emit_weight ? static_cast<float*>(weight) : nullptr,
       static_cast<const float*>(table), hr, wr, static_cast<float>(hr),
       static_cast<float>(wr), wy0, wx0, win_w,
-      static_cast<unsigned>(total), has_alpha, m00, m01, m02, m10, m11, m12,
-      m20, m21, m22);
+      static_cast<unsigned>(total), has_alpha,
+      Map{m00, m01, m02, m10, m11, m12, m20, m21, m22});
   return static_cast<int>(cudaGetLastError());
 }

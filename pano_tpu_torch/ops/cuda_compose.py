@@ -6,8 +6,9 @@ image placed at (ty, tx) is the base; inside the window the warped pixels
 (``ops/cuda_warp.py::warp_packed``, or the pipeline's gain and multiband
 output) are blended in by overlay (a non-black pixel wins) or feather
 (the analytic left edge ramp against the window's weight). Placements and
-windows are exact and unaligned. The plain version is
-``ops/warp.py::blend_window_outputs`` in pair mode.
+windows are exact and unaligned. The kernel reads the ramp's values from
+``ramp_table``, built once per left shape and device. The plain version
+is ``ops/warp.py::blend_window_outputs`` in pair mode.
 
 K6 replaces ``pano_tpu/ops/pallas_compose.py::compose_chain_canvas``: the
 global composite's step, one warped window blended into the accumulated
@@ -23,6 +24,7 @@ kernel for CUDA tensors; any other device raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -74,6 +76,21 @@ def compose_canvas_plain(
     )[0]
 
 
+def ramp_table(h: int, w: int, device=None) -> torch.Tensor:
+    """((min(h, w) + 1) // 2 + 1,) f32: the left edge ramp d / (min(h, w)
+    / 2) of the plain feather at every distance d it takes, 0 .. (min(h,
+    w) + 1) // 2, in its operations (one f32 division each). K5 reads its
+    left weight from it."""
+    d = torch.arange((min(h, w) + 1) // 2 + 1, dtype=torch.float32,
+                     device=device)
+    return warp_ops.true_div(d, min(h, w) / 2.0)
+
+
+@functools.lru_cache(maxsize=16)
+def _ramp_table(h: int, w: int, device: torch.device) -> torch.Tensor:
+    return ramp_table(h, w, device)
+
+
 def compose_canvas(
     left: torch.Tensor, win_rgb: torch.Tensor, w_win: Optional[torch.Tensor],
     ty: int, tx: int, window: Window, out_h: int, out_w: int,
@@ -96,11 +113,13 @@ def compose_canvas(
     if out_h == 0 or out_w == 0:
         return out
     hl, wl = left.shape[:2]
+    ramp = _ramp_table(hl, wl, left.device) if feather else None
     global launches
     _build.launch(
         "pano_compose_canvas", left.device,
         left.data_ptr(), win_rgb.data_ptr(),
-        w_win.data_ptr() if feather else 0, out.data_ptr(),
+        w_win.data_ptr() if feather else 0,
+        ramp.data_ptr() if feather else 0, out.data_ptr(),
         hl, wl, out_h, out_w, int(ty), int(tx), *window, int(feather),
     )
     launches += 1

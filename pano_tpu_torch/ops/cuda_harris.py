@@ -10,9 +10,12 @@ computes every product once with a halo of 8 columns and 8 rows a
 strip; ``csrc/harris.cu`` has the details. It is bit-identical to the
 plain version: the same f32 operations in the same order.
 
-``harris_scores`` takes the plain version for a tensor on the CPU and
-launches the kernel for a CUDA tensor (3x3 NMS only: another window
-raises there); any other device raises.
+Every odd NMS window n >= 3 runs on the card: n = 3, 5, 7 and 9 in one
+launch of the stencil instantiated for that half-width, wider windows in
+two (the stencil writes the R plane, and a second kernel takes the n x n
+maximum test and the fold over it). ``harris_scores`` takes the plain
+version for a tensor on the CPU and launches the kernel for a CUDA
+tensor; any other device raises.
 """
 
 from __future__ import annotations
@@ -27,6 +30,9 @@ from pano_tpu_torch.ops import conv as conv_ops
 from pano_tpu_torch.ops import harris as harris_ops
 
 launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+
+# The widest NMS window of the one-launch stencil (csrc/harris.cu MAX_NR).
+WIDEST_STENCIL_NMS = 9
 
 
 @functools.cache
@@ -79,10 +85,10 @@ def harris_scores(
         return harris_scores_plain(img_u8, k, nms_thresh, neighborhood)
     if img_u8.device.type != "cuda":
         raise ValueError(f"harris_scores: unsupported device {img_u8.device}")
-    if neighborhood != 3:
-        raise NotImplementedError(
-            f"harris_scores: the kernel implements 3x3 NMS, not "
-            f"{neighborhood}x{neighborhood}"
+    if neighborhood < 3 or neighborhood % 2 != 1:
+        raise ValueError(
+            f"harris_scores: the NMS window must be odd and >= 3, got "
+            f"{neighborhood}"
         )
     if not img_u8.is_contiguous():
         raise ValueError("harris_scores: image must be contiguous")
@@ -93,11 +99,15 @@ def harris_scores(
     )
     if h == 0 or w == 0:
         return out
+    # Windows wider than 9 go through an R plane (see csrc/harris.cu).
+    resp = (torch.empty((h, w), dtype=torch.float32, device=img_u8.device)
+            if neighborhood > WIDEST_STENCIL_NMS else None)
     global launches
     _build.launch(
         "pano_harris_scores", img_u8.device,
-        img_u8.data_ptr(), out.data_ptr(), h, w, float(k),
-        float(nms_thresh), *_gauss_taps(),
+        img_u8.data_ptr(), out.data_ptr(),
+        0 if resp is None else resp.data_ptr(), h, w, int(neighborhood),
+        float(k), float(nms_thresh), *_gauss_taps(),
     )
     launches += 1
     return out

@@ -1,8 +1,8 @@
 """Harris corner detection: score map -> 2x2 block fold -> exact top-K.
 
 Counterpart of ``pano_tpu/ops/harris.py``. The score map comes from kernel
-K1 (``ops/cuda_harris.py``; 3x3 NMS only) or, on CPU tensors, from its
-plain version, which takes any NMS window. Both give the block-folded
+K1 (``ops/cuda_harris.py``) or, on CPU tensors, from its plain version;
+both take any odd NMS window. Both give the block-folded
 ``(ceil(h/2), ceil(w/2))`` map whose peaks carry their in-block offset in
 the two mantissa LSBs, so the decode after top-K needs no gathers.
 

@@ -8,17 +8,20 @@ least-squares refine through a 9x9 eigendecomposition. Everything is
 float32; the package turns TF32 off, so the small matrix products are
 true fp32.
 
-Sampling: ``jax.random`` cannot be reproduced by ``torch.Generator``.
-``ransac_best_hypothesis`` takes an optional ``sampler(n_valid) -> (N, 4)
-int64`` table of indices into the compacted valid range; the default
-draws with ``torch.randint`` from a generator seeded with
-``RansacOptions.seed`` on the points' device (no host sync: the draw is
-reduced modulo ``n_valid`` on the device).
+Sampling: ``ransac_best_hypothesis`` takes a ``sampler(n_valid) -> (N, 4)
+int64`` table of indices into the compacted valid range. The default is
+the JAX package's own draw, ``jax.random.randint(PRNGKey(seed), (N, 4), 0,
+max(n_valid, 1))``, bit for bit: threefry2x32 and ``randint``'s two-word
+reduction in integer torch (``default_sampler``). Its random bits depend
+only on (seed, N, 4), so they are made once per device and kept; each call
+reduces them modulo ``n_valid`` on the device, with no host sync. Tests
+may inject another table through ``sampler=``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+import functools
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -188,21 +191,95 @@ def refine_homography(src, dst, mask) -> torch.Tensor:
     return h_full / h_full[2, 2]
 
 
+# --- jax.random.randint, bit for bit ------------------------------------------
+#
+# JAX's threefry2x32 PRNG with the jax_threefry_partitionable counter
+# layout (the default since jax 0.5): every uint32 lives in an int64 tensor
+# masked to 32 bits, because torch's uint32 lacks most operations.
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+    """The Threefry-2x32 hash of the counter pairs (x0, x1) under the key
+    (k0, k1): 20 rounds, a key injection after every 4
+    (jax._src.prng._threefry2x32_lowering)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _random_bits32(key: Tuple[int, int], n: int, device) -> torch.Tensor:
+    """random_bits(key, 32, (n,)): the hash of the 64-bit counters 0..n-1
+    (high word 0 below 2^32), its two words xor'ed."""
+    lo = torch.arange(n, dtype=torch.int64, device=device)
+    b0, b1 = _threefry2x32(*key, torch.zeros_like(lo), lo)
+    return b0 ^ b1
+
+
+def _split(key: Tuple[int, int]):
+    """split(key) into two keys: the hash of the counters 0 and 1."""
+    b0, b1 = _threefry2x32(*key, torch.zeros(2, dtype=torch.int64),
+                           torch.arange(2, dtype=torch.int64))
+    return ((int(b0[0]), int(b1[0])), (int(b0[1]), int(b1[1])))
+
+
+def prng_key(seed: int) -> Tuple[int, int]:
+    """PRNGKey(seed) as two uint32 words: the seed is an int32, as in the
+    JAX package (no x64), so the high word is 0 and the low word its two's
+    complement."""
+    if not -2**31 <= seed < 2**31:
+        raise ValueError(f"RANSAC seed {seed} is not an int32")
+    return 0, seed & _M32
+
+
+@functools.lru_cache(maxsize=16)
+def randint_bits(seed: int, n: int, s: int, device: torch.device):
+    """The two (n, s) bit planes of jax.random.randint(PRNGKey(seed),
+    (n, s), ...) for an int32 result: random_bits of each half of the
+    split key. They do not depend on the range, so they are kept."""
+    k1, k2 = _split(prng_key(seed))
+    return tuple(_random_bits32(k, n * s, device).reshape(n, s)
+                 for k in (k1, k2))
+
+
+def randint_from_bits(higher: torch.Tensor, lower: torch.Tensor,
+                      span: torch.Tensor) -> torch.Tensor:
+    """randint's reduction of its two bit planes into [0, span): (higher %
+    span) * m + (lower % span), modulo span, in wrapping uint32
+    arithmetic, with m = ((2^16 % span)^2 mod 2^32) % span
+    (jax._src.random._randint). Up to span = 2^16 nothing wraps and m is
+    2^32 % span; above it the square is 2^32, which wraps to m = 0. So it
+    is ((higher % span) * m + lower) % span with those m, in int64 (a
+    product below 2^32, a sum below 2^33). `span` is a () int64 tensor
+    >= 1."""
+    mult = (2**32 % span) * (span <= 2**16)
+    return (higher % span * mult + lower) % span
+
+
 def default_sampler(
     num_iterations: int, num_samples: int, seed: int, device
 ) -> Sampler:
-    """torch.randint from a generator seeded with `seed`, reduced modulo
-    n_valid on the device. A fresh generator per sampler keeps every
-    stitch of the same pair identical."""
+    """The JAX package's table: jax.random.randint(PRNGKey(seed),
+    (num_iterations, num_samples), 0, max(n_valid, 1)), on `device`. The
+    bit planes are made once per (seed, shape, device); a call reduces
+    them by the device tensor n_valid, with no host sync."""
+    higher, lower = randint_bits(seed, num_iterations, num_samples,
+                                 torch.device(device))
 
     def sample(n_valid: torch.Tensor) -> torch.Tensor:
-        gen = torch.Generator(device=device)
-        gen.manual_seed(seed)
-        raw = torch.randint(
-            0, 2**62, (num_iterations, num_samples), generator=gen,
-            device=device,
-        )
-        return raw % torch.clamp(n_valid.to(torch.int64), min=1)
+        span = torch.clamp(n_valid.to(device=higher.device,
+                                      dtype=torch.int64), min=1)
+        return randint_from_bits(higher, lower, span)
 
     return sample
 

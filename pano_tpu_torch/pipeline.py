@@ -175,12 +175,15 @@ class PairStitcher:
     Hopper kernels; "cpu" runs each kernel's plain version). ``timing_tag``
     suffixes the stage labels the way the reference's per-implementation
     mains do ("(OpenMP)", "(GPU)"). ``sampler`` optionally replaces
-    RANSAC's index table (see ``ops/ransac.py``)."""
+    RANSAC's index table (see ``ops/ransac.py``). ``print_timing``
+    defaults to True, as in the JAX package: the staged ``stitch_pair``
+    prints its stage lines, and ``estimate_homography`` runs stage by
+    stage; ``stitch_pair_fast`` prints nothing either way."""
 
     def __init__(
         self,
         config: PanoConfig = DEFAULT_CONFIG,
-        print_timing: bool = False,
+        print_timing: bool = True,
         timing_tag: str = "",
         device="cuda",
         sampler: Optional[ransac_ops.Sampler] = None,

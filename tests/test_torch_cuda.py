@@ -72,15 +72,43 @@ def test_harris_detect_same_keypoints_on_gpu_and_cpu():
         assert torch.equal(a, b.cpu())
 
 
-def test_harris_kernel_refuses_other_nms_windows():
-    """The kernel implements 3x3 NMS; another window raises on the card
-    instead of running the plain version there."""
+@pytest.mark.parametrize("shape", [(151, 333), (64, 241), (5, 9)])
+@pytest.mark.parametrize("nms", [3, 5, 7, 9, 11, 15])
+def test_harris_kernel_refuses_other_nms_windows(nms, shape):
+    """Every odd NMS window runs on the card (the test keeps its old name;
+    the kernel no longer refuses any): bit-identical to the plain version
+    with a low threshold (most blocks hold a candidate) and a high one,
+    through the one-launch stencil up to 9 and the R plane and fold
+    kernel above; harris_detect gives the CPU's keypoints."""
     from pano_tpu_torch.config import HarrisOptions
-    from pano_tpu_torch.ops import harris
+    from pano_tpu_torch.ops import cuda_harris, harris
 
-    img = torch.from_numpy(_img((64, 80), 53)).cuda()
-    with pytest.raises(NotImplementedError, match="3x3"):
-        harris.harris_detect(img, HarrisOptions(nms_neighborhood=5))
+    host = torch.from_numpy(_img(shape, 53))
+    img = host.cuda()
+    for thresh in (0.0, 1e6):
+        got = cuda_harris.harris_scores(img, 0.04, thresh, nms)
+        want = cuda_harris.harris_scores_plain(img, 0.04, thresh, nms)
+        assert torch.equal(got, want)
+    opts = HarrisOptions(max_keypoints=300, nms_neighborhood=nms)
+    kg = harris.harris_detect(img, opts)
+    kc = harris.harris_detect(host, opts)
+    for a, b in zip(kg, kc):
+        assert torch.equal(a.cpu(), b)
+    assert int(kg.count()) > 0 or shape == (5, 9)
+
+
+@pytest.mark.parametrize("seed", [0, 7, 2**31 - 1])
+def test_default_sampler_cuda_table_equals_cpu(seed):
+    """RANSAC's default table (JAX's randint) is made on the card from a
+    device n_valid, and equals the CPU's."""
+    from pano_tpu_torch.ops import ransac
+
+    cpu = ransac.default_sampler(1000, 4, seed, "cpu")
+    gpu = ransac.default_sampler(1000, 4, seed, "cuda")
+    for n_valid in (0, 1, 3, 100, 4097, 8192, 65537 * 3):
+        got = gpu(torch.tensor(n_valid, dtype=torch.int32, device="cuda"))
+        assert got.is_cuda
+        assert torch.equal(got.cpu(), cpu(torch.tensor(n_valid)))
 
 
 def test_gather_kernel_vs_plain():
@@ -197,9 +225,17 @@ def test_match_kernel_refuses_short_scratch():
                       nbytes - 1, kq, kt, d)
 
 
+PROJ = np.array([[0.97, 0.02, 12.0], [-0.015, 1.02, 4.0], [2e-5, -1e-5, 1.0]])
+
+
+def _shift(x, y):
+    return np.array([[1.0, 0.0, x], [0.0, 1.0, y], [0.0, 0.0, 1.0]])
+
+
 @pytest.mark.parametrize("proj", [False, True])
 def test_warp_kernel_vs_plain(proj):
-    """max |d| <= 1, d != 0 on < 0.1% of the window's pixels."""
+    """Bit-identical (it was max |d| <= 1 with d != 0 on < 0.1% of the
+    window's pixels before K4a shared K4b's exact sample)."""
     from pano_tpu_torch.ops import cuda_warp
 
     right = torch.from_numpy(_img((200, 300), 55)).cuda()
@@ -212,9 +248,78 @@ def test_warp_kernel_vs_plain(proj):
             260, 420)
     got = cuda_warp.warp_compose_overlay(*args)
     want = cuda_warp.warp_compose_overlay_plain(*args)
-    d = (got.int() - want.int()).abs().amax(-1)
-    assert int(d.max()) <= 1
-    assert int((d != 0).sum()) < 1e-3 * 237 * 395
+    assert torch.equal(got, want)
+
+
+# K4a and K5 cases: (left shape, right shape, (ty, tx), canvas window,
+# canvas shape, canvas-from-source map of the right image).
+CANVAS_CASES = {
+    # tx and wx0 at every residue mod 16, odd canvas widths
+    **{f"tx,wx0%16={r}": ((90, 131 + r), (80, 120), (r % 5, r),
+                          (7, 48 + r, 88, 169 + r), (97, 171 + 2 * r),
+                          _shift(48.0 + r - 0.3, 7.6)) for r in range(16)},
+    "projective_full": ((180, 220), (200, 300), (30, 190),
+                        (0, 0, 260, 421), (260, 421), PROJ),
+    "touch_top_left": ((60, 90), (50, 70), (10, 20), (0, 0, 40, 60),
+                       (70, 111), _shift(-10.5, -10.25)),
+    "touch_bottom_right": ((60, 90), (50, 70), (0, 0), (30, 41, 81, 113),
+                           (81, 113), _shift(41.3, 30.7)),
+    "width1": ((60, 90), (50, 70), (3, 2), (5, 37, 55, 38), (63, 95),
+               _shift(37.2, 5.5)),
+    "height1": ((60, 90), (50, 70), (3, 2), (21, 4, 22, 77), (63, 95),
+                _shift(4.2, 21.5)),
+    "empty_width": ((60, 90), (50, 70), (3, 2), (5, 37, 55, 37), (63, 95),
+                    _shift(37.2, 5.5)),
+    "empty_height": ((60, 90), (50, 70), (3, 2), (5, 37, 5, 90), (63, 95),
+                     _shift(37.2, 5.5)),
+    # fold: the growing panorama on the left, larger than the right image
+    "fold": ((310, 1003), (120, 200), (4, 0), (150, 900, 272, 1102),
+             (314, 1103), _shift(900.4, 151.3)),
+    # the main path's planted pair
+    "planted": ((3117, 4156), (3117, 4156), (0, 0),
+                (35, 1398, 3154, 5556), (3154, 5556), _shift(1400.0, 37.0)),
+}
+
+
+def _canvas_case(case):
+    lshape, rshape, (ty, tx), window, (oh, ow), m = CANVAS_CASES[case]
+    left = torch.from_numpy(_img(lshape, 66)).cuda()
+    right = torch.from_numpy(_img(rshape, 67)).cuda()
+    return left, right, ty, tx, window, oh, ow, np.linalg.inv(m)
+
+
+@pytest.mark.parametrize("case", list(CANVAS_CASES))
+def test_warp_overlay_kernel_vs_plain(case):
+    """K4a bit-identical to its plain version: tx and wx0 at every 16-byte
+    phase, odd canvas widths, windows on every canvas edge, one pixel
+    wide or high, empty, a fold-shaped left larger than the right, the
+    main path's planted pair."""
+    from pano_tpu_torch.ops import cuda_warp
+
+    left, right, ty, tx, window, oh, ow, m_inv = _canvas_case(case)
+    args = (right, m_inv, left, ty, tx, window, oh, ow)
+    got = cuda_warp.warp_compose_overlay(*args)
+    want = cuda_warp.warp_compose_overlay_plain(*args)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("blend", ["overlay", "feather"])
+@pytest.mark.parametrize("case", list(CANVAS_CASES))
+def test_compose_canvas_kernel_vs_plain(case, blend):
+    """K5 bit-identical to its plain version over K4b's window of the same
+    cases as K4a, with black holes and zero weights in it."""
+    from pano_tpu_torch.ops import cuda_compose, cuda_warp
+
+    left, right, ty, tx, window, oh, ow, m_inv = _canvas_case(case)
+    rgb, w = cuda_warp.warp_packed_plain(right, m_inv, window, True)
+    hole = torch.from_numpy(
+        np.random.default_rng(68).random(tuple(w.shape)) < 0.2).cuda()
+    rgb[hole] = 0
+    w = torch.where(hole, torch.zeros_like(w), w)
+    args = (left, rgb, w, ty, tx, window, oh, ow, blend)
+    got = cuda_compose.compose_canvas(*args)
+    want = cuda_compose.compose_canvas_plain(*args)
+    assert torch.equal(got, want)
 
 
 def test_stitch_pair_fast_on_gpu_matches_cpu():
@@ -255,13 +360,6 @@ def test_stitch_pair_fast_on_gpu_matches_cpu():
     h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
     d = (got.cpu()[:h, :w].int() - want[:h, :w].int()).abs().amax(-1)
     assert float((d > 3).float().mean()) < 0.01
-
-
-PROJ = np.array([[0.97, 0.02, 12.0], [-0.015, 1.02, 4.0], [2e-5, -1e-5, 1.0]])
-
-
-def _shift(x, y):
-    return np.array([[1.0, 0.0, x], [0.0, 1.0, y], [0.0, 0.0, 1.0]])
 
 
 # K4b cases: (source shape, canvas-from-source map, canvas window).
@@ -311,8 +409,8 @@ def test_warp_packed_kernel_vs_plain(has_alpha, case):
 
 @pytest.mark.parametrize("blend", ["overlay", "feather"])
 def test_compose_kernel_vs_plain(blend):
-    """K5 at unaligned placements, black holes in the window: overlay
-    bit-identical, feather max |d| <= 1."""
+    """K5 at unaligned placements, black holes in the window:
+    bit-identical (feather was held to max |d| <= 1 before)."""
     from pano_tpu_torch.ops import cuda_compose
 
     rng = np.random.default_rng(59)
@@ -325,8 +423,7 @@ def test_compose_kernel_vs_plain(blend):
             13, 29, (5, 41, 82, 134), 170, 230, blend)
     got = cuda_compose.compose_canvas(*args)
     want = cuda_compose.compose_canvas_plain(*args)
-    d = int((got.int() - want.int()).abs().max())
-    assert d <= (0 if blend == "overlay" else 1)
+    assert torch.equal(got, want)
 
 
 def test_feather_pair_on_gpu_matches_cpu():

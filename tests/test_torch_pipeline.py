@@ -111,6 +111,33 @@ def test_stitch_pair_fast_matches_jax_fused(jax_stitcher, pair):
     assert (d > 3).mean() < 0.01, (d.max(), (d > 3).mean())
 
 
+@pytest.mark.parametrize("pair", [translated_pair, projective_pair],
+                         ids=["translation", "projective"])
+def test_default_sampler_estimate_matches_jax(jax_stitcher, pair):
+    """No injected sampler: the port's own table is JAX's, so its estimate
+    is JAX's: the warped right corners within 0.1 px, the same inlier
+    count, and the panorama within test_stitch_pair_fast_matches_jax_fused's
+    bar."""
+    left, right = pair()
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jax_stitcher.stitch_pair_fast(
+            jnp.asarray(left), jnp.asarray(right), _assume_tpu=True))
+        row_j = np.asarray(jax_stitcher._fused_estimate_src(
+            jnp.asarray(left), jnp.asarray(right))[0])
+    st = TP.PairStitcher(PORT_SMALL, device="cpu")
+    assert st.sampler is None
+    got = st.stitch_pair_fast(left, right).numpy()
+    row_t = st.last_estimate
+    assert row_t[11] > 0.5 and row_j[11] > 0.5
+    assert row_t[9] == row_j[9], (row_t[9], row_j[9])
+    cj = JW.warp_corners(row_j[:9].reshape(3, 3), *right.shape[:2])
+    ct = JW.warp_corners(row_t[:9].reshape(3, 3), *right.shape[:2])
+    assert np.abs(cj - ct).max() < 0.1, np.abs(cj - ct).max()
+    assert got.shape == want.shape, (got.shape, want.shape)
+    d = np.abs(got.astype(int) - want.astype(int)).max(-1)
+    assert (d > 3).mean() < 0.01, (d.max(), (d > 3).mean())
+
+
 def test_fused_geometry_places_left_like_the_jax_crop(jax_stitcher):
     """An exact translation: the port's exact canvas equals the JAX fused
     compose's padded canvas after its crop, pixel for pixel."""
@@ -404,6 +431,26 @@ def test_staged_stitch_pair_prints_stage_lines(capsys):
     want = np.asarray(JP.PairStitcher(jc, print_timing=False).stitch_pair(
         jnp.asarray(left), jnp.asarray(right)))
     _bar(_diff(got.numpy(), want), "feather")
+
+
+def test_default_stitchers_print_the_same_stage_labels(capsys):
+    """Both packages' PairStitcher with default arguments (the port on the
+    CPU) print the reference's stage lines from stitch_pair, with the
+    same labels in the same order."""
+    left, right = translated_pair()
+    JP.PairStitcher(JAX_SMALL).stitch_pair(jnp.asarray(left),
+                                           jnp.asarray(right))
+    want = capsys.readouterr().out
+    TP.PairStitcher(PORT_SMALL, device="cpu").stitch_pair(left, right)
+    got = capsys.readouterr().out
+
+    def labels(out):
+        lines = out.splitlines()
+        assert all(re.fullmatch(r".+: \d+\.\d{3} ms", x) for x in lines), out
+        return [x.rsplit(": ", 1)[0] for x in lines]
+
+    assert labels(got) == labels(want) == [STAGES[0], STAGES[0],
+                                           *STAGES[1:]]
 
 
 def test_timing_tag_suffixes_stage_lines(capsys):

@@ -1,5 +1,6 @@
-"""pano_tpu_torch RANSAC vs the JAX package's on the CPU, with the JAX
-sample table injected so both sides score the same hypotheses."""
+"""pano_tpu_torch RANSAC vs the JAX package's on the CPU: the default
+sample table against jax.random.randint, and the estimate with the JAX
+table injected so both sides score the same hypotheses."""
 
 import numpy as np
 import pytest
@@ -130,6 +131,35 @@ def test_finalize_gates(n_valid, outliers):
     if n_valid < 4:
         np.testing.assert_array_equal(rt.H.numpy(), np.eye(3))
         np.testing.assert_array_equal(np.asarray(rj.H), np.eye(3))
+
+
+@pytest.mark.parametrize("shape", [(1000, 4), (37, 4), (5, 3)],
+                         ids=["1000x4", "37x4", "5x3"])
+@pytest.mark.parametrize("n_valid", [0, 1, 2, 3, 7, 100, 1000, 4097, 8191,
+                                     8192])
+@pytest.mark.parametrize("seed", [0, 1, 7, 12345, 2**31 - 1])
+def test_default_sampler_is_jax_randint(seed, n_valid, shape):
+    """The default table is jax.random.randint(PRNGKey(seed), shape, 0,
+    max(n_valid, 1)) exactly (this jax's threefry counter layout), with
+    n_valid given as a device tensor."""
+    want = jax.random.randint(jax.random.PRNGKey(seed), shape, 0,
+                              max(n_valid, 1))
+    got = TR.default_sampler(*shape, seed=seed, device="cpu")(
+        torch.tensor(n_valid, dtype=torch.int32))
+    assert got.dtype == torch.int64
+    assert torch.equal(got, torch.from_numpy(np.array(want)).long())
+
+
+def test_default_sampler_layout_is_jax_default():
+    """The port draws with the partitionable threefry counter layout, which
+    this jax uses by default; a table for a span above 2^16 (whose 2^32 %
+    span wraps) matches too."""
+    assert jax.config.jax_threefry_partitionable
+    span = 65537 * 3
+    want = jax.random.randint(jax.random.PRNGKey(3), (64, 4), 0, span)
+    got = TR.default_sampler(64, 4, seed=3, device="cpu")(
+        torch.tensor(span, dtype=torch.int32))
+    assert torch.equal(got, torch.from_numpy(np.array(want)).long())
 
 
 def test_default_sampler_is_seeded_and_in_range():

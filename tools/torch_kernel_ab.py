@@ -1,0 +1,84 @@
+#!/usr/bin/env python3
+"""Time K1, K4a, K4b and K5 of one copy of the pano_tpu_torch package on
+the GPU, for comparing versions of the kernels in one machine session.
+
+    python3 tools/torch_kernel_ab.py DIR
+
+DIR holds a ``pano_tpu_torch`` package (this checkout's, or another
+version unpacked beside it, e.g. ``git archive <commit> pano_tpu_torch``);
+it builds its kernels into ``DIR/build``. The data and the timer are
+``chip_smoke.py``'s: the planted 4156x3117 pair and its 3154x5556 canvas,
+the K5 window from K4b with the ramp alpha. It prints one JSON line: each
+kernel's output against its plain version (torch.equal), its median time
+around the wrapper with L2 flushed (``ms``) and its device time alone
+(``device_ms``: the card warmed, a spin before each of 20 runs). Run the
+versions in turns (A, B, B, A) in one call: cards and calls differ.
+"""
+
+import json
+import pathlib
+import sys
+import time
+
+
+def main() -> None:
+    vdir = str(pathlib.Path(sys.argv[1]).resolve())
+    sys.path.insert(0, vdir)
+    import numpy as np
+    import torch
+
+    import pano_tpu_torch
+
+    if not pano_tpu_torch.__file__.startswith(vdir):
+        raise SystemExit(f"imported {pano_tpu_torch.__file__}, not {vdir}")
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: no CUDA device")
+    from pano_tpu_torch import DEFAULT_CONFIG, _build
+
+    t0 = time.perf_counter()
+    _build.lib()
+    build_s = time.perf_counter() - t0
+    sys.path.insert(1, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke as C
+    from pano_tpu_torch.ops import cuda_compose, cuda_harris, cuda_warp
+    from pano_tpu_torch.pipeline import fused_canvas_geometry
+
+    left_np, right_np = C.synthetic_pair(0)
+    left = torch.from_numpy(left_np).cuda()
+    right = torch.from_numpy(right_np).cuda()
+    row = np.zeros(14, np.float32)
+    row[:9] = [1, 0, C.DX, 0, 1, C.DY, 0, 0, 1]
+    geo = fused_canvas_geometry(row, left.shape[:2], right.shape[:2])
+    k4a = (right, geo.m_inv, left, geo.ty, geo.tx, geo.window, geo.canvas_h,
+           geo.canvas_w)
+    rgb, w = cuda_warp.warp_packed(right, geo.m_inv, geo.window, True)
+    k5 = {b: (left, rgb, w, geo.ty, geo.tx, geo.window, geo.canvas_h,
+              geo.canvas_w, b) for b in ("overlay", "feather")}
+    equal = {"K4a": torch.equal(cuda_warp.warp_compose_overlay(*k4a),
+                                cuda_warp.warp_compose_overlay_plain(*k4a))}
+    for b, args in k5.items():
+        equal[f"K5_{b}"] = torch.equal(
+            cuda_compose.compose_canvas(*args),
+            cuda_compose.compose_canvas_plain(*args))
+    h = DEFAULT_CONFIG.harris
+    runs = {
+        "K1": lambda: cuda_harris.harris_scores(left, h.k, h.nms_thresh),
+        "K4a": lambda: cuda_warp.warp_compose_overlay(*k4a),
+        "K4b": lambda: cuda_warp.warp_packed(right, geo.m_inv, geo.window,
+                                             True),
+        "K4b_no_weight": lambda: cuda_warp.warp_packed(
+            right, geo.m_inv, geo.window, True, emit_weight=False),
+        "K5_feather": lambda: cuda_compose.compose_canvas(*k5["feather"]),
+        "K5_overlay": lambda: cuda_compose.compose_canvas(*k5["overlay"]),
+    }
+    timer = C.Timer(torch)
+    ms = {k: timer(fn) for k, fn in runs.items()}
+    timer.warm()
+    device_ms = {k: timer(fn, reps=20, spin=True) for k, fn in runs.items()}
+    print(json.dumps({"dir": vdir, "card": C.nvidia_smi_line(),
+                      "build_s": round(build_s, 1), "equal": equal,
+                      "ms": ms, "device_ms": device_ms}), flush=True)
+
+
+if __name__ == "__main__":
+    main()
