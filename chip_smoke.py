@@ -31,9 +31,13 @@ failure.
    card warmed by ~0.2 s of memsets, a spin before each run so that it
    is still busy while the host enqueues; K4b also without the ramp
    alpha and without the weight, K5 and K6 also with overlay, K1 at the
-   other NMS windows). K3 has no library call;
-   its product alone, torch.mm in f32 with TF32 off, is timed
-   beside it as a yardstick (product_ms); K4a's and K4b's is
+   other NMS windows), and the launch floor: the device time of a
+   one-element fill_ under the same timer. K2 (the whole descriptor
+   step: border flags and descriptors) runs on the left image's
+   keypoints; its library call is torch.take of the flat image by the
+   patches' byte index (no border test, mask, cast or padding). K3 has
+   no library call; its product alone, torch.mm in f32 with TF32 off, is
+   timed beside it as a yardstick (product_ms); K4a's and K4b's is
    F.grid_sample of the window. K4a, K4b and K5 run on the
    planted pair translation and on a mild projective H; K4b with and
    without the ramp alpha, K5 with overlay and feather. K6 runs a step
@@ -386,7 +390,8 @@ def warm_walls(torch, stitcher, left, right, first, reps=5):
 def stage_breakdown(torch, stitcher, left, right, reps=5) -> dict:
     """Median ms of each stage of the fused pair, serialized (synchronize
     around every stage), over `reps` warm runs, through the same calls
-    stitch_pair_fast makes."""
+    stitch_pair_fast makes; match_keypoints as its two parts, describe
+    (both images' descriptors, K2 x2) and match (K3 and the epilogue)."""
     from pano_tpu_torch.ops import harris, match, ransac
     from pano_tpu_torch.pipeline import fused_canvas_geometry
 
@@ -406,8 +411,14 @@ def stage_breakdown(torch, stitcher, left, right, reps=5) -> dict:
             left, cfg.harris))
         kps_r = timed("detect_right", lambda: harris.harris_detect(
             right, cfg.harris))
-        m = timed("match", lambda: match.match_keypoints(
-            kps_r, kps_l, right, left, cfg.harris))
+        p = cfg.harris.patch_size
+        (dq, bq), (dt, bt) = timed("describe", lambda: (
+            match.extract_patch_descriptors(right, kps_r, p),
+            match.extract_patch_descriptors(left, kps_l, p)))
+        m = timed("match", lambda: match.match_descriptors(
+            dq, bq, dt, bt, cfg.harris.max_ssd_thresh,
+            ratio_thresh=cfg.harris.ratio_thresh,
+            cross_check=cfg.harris.cross_check))
         pts = timed("match_points", lambda: match.gather_match_points(
             kps_r, kps_l, m))
         res = timed("ransac", lambda: ransac.ransac_homography(
@@ -648,27 +659,44 @@ def main() -> None:
     kps_l = harris.harris_detect(left, hopts)
     kps_r = harris.harris_detect(right, hopts)
     p = hopts.patch_size
-    _, bv_l = match.extract_patch_descriptors(left, kps_l, p)
-    _, bv_r = match.extract_patch_descriptors(right, kps_r, p)
-    xy_l = kps_l.xy.contiguous()
-    got = cuda_gather.gather_patches(left, xy_l, bv_l, p)
-    want = cuda_gather.gather_patches_plain(left, xy_l, bv_l, p)
+    xy_l, kv_l = kps_l.xy.contiguous(), kps_l.valid
+    got, bv_l = cuda_gather.gather_patches(left, xy_l, kv_l, p)
+    want, want_bv = cuda_gather.gather_patches_plain(left, xy_l, kv_l, p)
     check(torch.equal(got, want), "K2 descriptors differ from the plain version")
+    check(torch.equal(bv_l, want_bv)
+          and int(bv_l.view(torch.uint8).max()) <= 1,
+          "K2 border flags differ from the plain version")
+    # The library yardstick: one torch.take of the flat image by the
+    # (K, p*p*3) byte index of the per-tap clamped patches, the index built
+    # outside the timed window. It does less than K2: no border test, no
+    # mask, no f32 cast, no padding columns.
+    k_cap, half = xy_l.shape[0], p // 2
+    offs = torch.arange(-half, half + 1, device=DEVICE)
+    ys = torch.clamp(xy_l[:, 1:2].long() + offs, 0, left.shape[0] - 1)
+    xs = torch.clamp(xy_l[:, 0:1].long() + offs, 0, left.shape[1] - 1)
+    take_idx = ((ys[:, :, None] * left.shape[1] + xs[:, None, :])[..., None]
+                * 3 + torch.arange(3, device=DEVICE)).reshape(k_cap, -1)
+    flat = left.reshape(-1)
+    n_bv = int(bv_l.sum())
     res["K2"] = dict(
         max_abs_err=float((got - want).abs().max()),
-        ms=timer(lambda: cuda_gather.gather_patches(left, xy_l, bv_l, p)),
+        ms=timer(lambda: cuda_gather.gather_patches(left, xy_l, kv_l, p)),
         plain_ms=timer(
-            lambda: cuda_gather.gather_patches_plain(left, xy_l, bv_l, p)),
-        library_ms=None,
-        # The patch pixels it reads, the keypoints, the descriptors.
-        bound=bound(xy_l.shape[0] * p * p * 3 + nbytes(xy_l, bv_l, got), 0),
+            lambda: cuda_gather.gather_patches_plain(left, xy_l, kv_l, p)),
+        library_ms=timer(lambda: torch.take(flat, take_idx)),
+        # The patch bytes of the border-valid rows (the only pixels it
+        # reads), the keypoints and their flags in, descriptors and border
+        # flags out.
+        bound=bound(n_bv * p * p * 3 + nbytes(xy_l, kv_l, got, bv_l), 0),
     )
     device_runs.append(("K2", "device_ms", functools.partial(
-        cuda_gather.gather_patches, left, xy_l, bv_l, p), None))
-    log("K2 gather_patches", shape=tuple(got.shape),
-        valid=int(bv_l.sum()), **res["K2"])
+        cuda_gather.gather_patches, left, xy_l, kv_l, p), None))
+    log("K2 gather_patches", shape=tuple(got.shape), valid=int(kv_l.sum()),
+        border_valid=n_bv, **res["K2"])
+    del take_idx, flat, ys, xs
 
-    desc_r = cuda_gather.gather_patches(right, kps_r.xy.contiguous(), bv_r, p)
+    desc_r, bv_r = cuda_gather.gather_patches(right, kps_r.xy.contiguous(),
+                                              kps_r.valid, p)
     desc_l = got
     got = cuda_match.match_cores(desc_r, bv_r, desc_l, bv_l)
     want = cuda_match.match_cores_plain(desc_r, bv_r, desc_l, bv_l)
@@ -885,6 +913,10 @@ def main() -> None:
     timer.warm()
     for k, field, fn, setup in device_runs:
         res[k][field] = timer(fn, setup=setup, spin=True)
+    # What any launch costs under this timer: a one-element fill_.
+    one = torch.zeros(1, device=DEVICE)
+    log("launch floor", fill_device_ms=timer(lambda: one.fill_(1.0),
+                                             spin=True))
     log("device time", **{k: res[k]["device_ms"] for k in KERNELS},
         K4b_no_alpha=res["K4b"]["device_ms_no_alpha"],
         K4b_no_weight=res["K4b"]["device_ms_no_weight"],

@@ -52,8 +52,8 @@ SIGNATURES = {
     # img, out, R plane scratch, h, w, nms window, k, thresh, g0, g1, g2,
     # stream
     "pano_harris_scores": [_V, _V, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V],
-    # img, xy, border_valid, desc, h, w, k, p, d_pad, stream
-    "pano_gather_patches": [_V, _V, _V, _V, _I, _I, _I, _I, _I, _V],
+    # img, xy, kp_valid, desc, border_valid, h, w, k, p, d_pad, stream
+    "pano_gather_patches": [_V] * 5 + [_I] * 5 + [_V],
     # q, t, vq, vt, best, idx, second, col_best, scratch, scratch_bytes,
     # kq, kt, d, stream
     "pano_match_streaming": [_V] * 9 + [_L, _I, _I, _I, _V],

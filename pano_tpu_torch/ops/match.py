@@ -38,21 +38,11 @@ class Matches(NamedTuple):
 def extract_patch_descriptors(
     img_u8: torch.Tensor, kps: KeyPoints, patch_size: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (desc (K, 128) float32, border_valid (K,) bool).
-
-    Descriptors of invalid keypoints are zeros; border validity is the
-    reference's clip test."""
-    h, w = img_u8.shape[:2]
-    border = patch_size // 2
-    x = kps.xy[:, 0]
-    y = kps.xy[:, 1]
-    border_valid = (
-        (x >= border) & (y >= border) & (x + border < w) & (y + border < h)
-        & kps.valid
-    )
-    desc = cuda_gather.gather_patches(img_u8, kps.xy.contiguous(),
-                                      border_valid, patch_size)
-    return desc, border_valid
+    """Returns (desc (K, d_pad) float32, border_valid (K,) bool), one K2
+    call: descriptors of invalid keypoints are zeros; border validity is
+    the reference's clip test on valid keypoints."""
+    return cuda_gather.gather_patches(img_u8, kps.xy.contiguous(),
+                                      kps.valid.contiguous(), patch_size)
 
 
 def match_descriptors(

@@ -111,20 +111,90 @@ def test_default_sampler_cuda_table_equals_cpu(seed):
         assert torch.equal(got.cpu(), cpu(torch.tensor(n_valid)))
 
 
-def test_gather_kernel_vs_plain():
-    """Bit-identical, border keypoints and invalid rows included."""
+# K2 cases: image shape and data offset in bytes, for a patch size p.
+GATHER_IMAGES = {
+    "3w_odd": lambda p: ((61, 91), 1),       # row of 273 bytes, unaligned
+    "3w_mult16": lambda p: ((57, 112), 0),   # row of 336 = 21 * 16 bytes
+    "narrow": lambda p: ((40, p - 1), 0),    # every row border-invalid
+    "short": lambda p: ((p - 1, 45), 3),
+    "4156x3117": lambda p: ((3117, 4156), 0),
+}
+
+
+def _gather_inputs(shape, offset, k, rng):
+    """An (h, w, 3) image `offset` bytes past an allocation's start, and
+    k keypoints: random ones around the image (border lines crossed), a
+    tenth invalid far outside it, 15 % of the rest invalid."""
+    h, w = shape
+    buf = torch.zeros(h * w * 3 + offset, dtype=torch.uint8)
+    buf[offset:] = torch.from_numpy(_img(shape, 54)).flatten()
+    img = buf.cuda()[offset:].view(h, w, 3)
+    xs = rng.integers(-3, w + 3, k)
+    ys = rng.integers(-3, h + 3, k)
+    kv = rng.random(k) > 0.15
+    wild = rng.random(k) < 0.1
+    far = [-10**6, 10**6, 2**30, -2**31 + 5]
+    xs[wild] = rng.choice(far, int(wild.sum()))
+    ys[wild] = rng.choice(far, int(wild.sum()))
+    kv[wild] = False
+    xy = torch.from_numpy(np.stack([xs, ys], -1).astype(np.int32)).cuda()
+    return img, xy, torch.from_numpy(kv).cuda()
+
+
+@pytest.mark.parametrize("image", list(GATHER_IMAGES))
+@pytest.mark.parametrize("p", [3, 5, 7, 9, 11])
+def test_gather_kernel_vs_plain(p, image):
+    """Descriptors and border flags bit-identical to the plain version
+    (the flags exactly 0 or 1 a byte) for p = 3, 5, 7 (compile-time) and
+    9, 11 (runtime p), K = 0 to 8197 (a block's 8 keypoints cut at the
+    tail), rows of 3W bytes odd and a multiple of 16, an unaligned
+    image, images narrower or shorter than p, and invalid rows far
+    outside the image; at 4156x3117 also the default config's keypoints
+    from harris_detect."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import cuda_gather, harris
+
+    shape, offset = GATHER_IMAGES[image](p)
+    rng = np.random.default_rng(55 + p)
+    cases = []
+    for k in (0, 1, 31, 32, 33, 1000, 8197):
+        cases.append(_gather_inputs(shape, offset, k, rng))
+    if image == "4156x3117":
+        img = cases[0][0]
+        kps = harris.harris_detect(img, DEFAULT_CONFIG.harris)
+        assert int(kps.count()) > 1000
+        cases.append((img, kps.xy.contiguous(), kps.valid))
+    for img, xy, kv in cases:
+        assert img.is_contiguous()
+        before = cuda_gather.launches
+        desc, bv = cuda_gather.gather_patches(img, xy, kv, p)
+        assert cuda_gather.launches == before + (xy.shape[0] > 0)
+        want_d, want_b = cuda_gather.gather_patches_plain(img, xy, kv, p)
+        assert desc.shape == want_d.shape and bv.dtype == torch.bool
+        assert torch.equal(bv, want_b)
+        assert bv.numel() == 0 or int(bv.view(torch.uint8).max()) <= 1
+        assert torch.equal(desc, want_d)
+        if image in ("narrow", "short"):
+            assert not bool(bv.any()) and not bool(desc.any())
+
+
+@pytest.mark.parametrize("image", ["3w_odd", "3w_mult16"])
+@pytest.mark.parametrize("p", [1, 13, 31])
+def test_gather_kernel_other_patch_sizes(p, image):
+    """The runtime-p path (tap / p by the host's reciprocal, which wraps
+    to 0 at p = 1; several 128-column chunks a row at 13 and 31):
+    bit-identical to the plain version."""
     from pano_tpu_torch.ops import cuda_gather
 
-    img = torch.from_numpy(_img((60, 90), 53)).cuda()
-    rng = np.random.default_rng(53)
-    xy = np.stack([rng.integers(0, 90, 300), rng.integers(0, 60, 300)], -1)
-    xy[:4] = [[0, 0], [89, 59], [2, 57], [1, 30]]
-    xy = torch.from_numpy(xy.astype(np.int32)).cuda()
-    bv = torch.from_numpy(rng.random(300) > 0.2).cuda()
-    for p in (5, 7):
-        got = cuda_gather.gather_patches(img, xy, bv, p)
-        want = cuda_gather.gather_patches_plain(img, xy, bv, p)
-        assert torch.equal(got, want)
+    shape, offset = GATHER_IMAGES[image](p)
+    shape = (max(shape[0], p + 9), max(shape[1], p + 9))
+    rng = np.random.default_rng(56 + p)
+    for k in (1, 33, 1000):
+        img, xy, kv = _gather_inputs(shape, offset, k, rng)
+        desc, bv = cuda_gather.gather_patches(img, xy, kv, p)
+        want_d, want_b = cuda_gather.gather_patches_plain(img, xy, kv, p)
+        assert torch.equal(bv, want_b) and torch.equal(desc, want_d)
+        assert k < 1000 or bool(bv.any())
 
 
 MATCH_BQ = 128  # query rows per block of csrc/match.cu

@@ -1,7 +1,9 @@
-"""pano_tpu_torch descriptors (K2's plain version), matcher cores (K3's
-plain version) and the match epilogue vs the JAX package's XLA paths on
-the CPU. Tolerance: none, every output is bit-identical (descriptor
-entries are u8 values, so every SSD is an exact f32 integer)."""
+"""pano_tpu_torch descriptors and border flags (K2's plain version),
+matcher cores (K3's plain version) and the match epilogue vs the JAX
+package's XLA paths (and K2's interior rows vs the Pallas gather in
+interpret mode) on the CPU. Tolerance: none, every output is
+bit-identical (descriptor entries are u8 values, so every SSD is an exact
+f32 integer)."""
 
 import numpy as np
 import pytest
@@ -47,15 +49,134 @@ def test_descriptors_bit_identical(patch):
     dt, bt = TM.extract_patch_descriptors(torch.from_numpy(img), kt, patch)
     d_pad = 128 if patch == 5 else 256  # p*p*3 rounded up to 128
     assert dt.shape == (200, d_pad) and dt.dtype == torch.float32
+    assert bt.dtype == torch.bool
     np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
     np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
     assert not bt[:9].all()  # the planted border cases are excluded
-    np.testing.assert_array_equal(
-        cuda_gather.gather_patches_plain(
-            torch.from_numpy(img), kt.xy, bt, patch
-        ).numpy(),
-        dt.numpy(),
+    dp, bp = cuda_gather.gather_patches_plain(
+        torch.from_numpy(img), kt.xy, kt.valid, patch
     )
+    np.testing.assert_array_equal(dp.numpy(), dt.numpy())
+    np.testing.assert_array_equal(bp.numpy(), bt.numpy())
+
+
+def _border_lines(rng, h, w, b):
+    """Keypoints on each border line of a p = 2b + 1 patch: inside
+    (x = b, x = w - b - 1) and just outside (x = b - 1, x = w - b), the
+    same for y, each beside a random interior coordinate, and the four
+    corners of the valid region and of the image."""
+    xy = []
+    for x in (b, w - b - 1, b - 1, w - b):
+        xy.append((x, int(rng.integers(b, h - b))))
+    for y in (b, h - b - 1, b - 1, h - b):
+        xy.append((int(rng.integers(b, w - b)), y))
+    for x in (b, w - b - 1, b - 1, w - b, 0, w - 1):
+        for y in (b, h - b - 1, b - 1, h - b, 0, h - 1):
+            xy.append((x, y))
+    return np.asarray(xy, np.int32)
+
+
+def _edge_case(case, p, rng):
+    """(image, xy, valid) of one descriptor edge case at patch size p."""
+    b = p // 2
+    h, w = 3 * p + 4, 4 * p + 3
+    if case == "smaller_than_p":
+        h, w = p - 1, p + 3
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    if case == "border_lines":
+        xy = _border_lines(rng, h, w, b)
+        valid = rng.random(len(xy)) > 0.1
+        valid[:8] = True
+    elif case == "smaller_than_p":
+        xy = np.stack([rng.integers(0, w, 40), rng.integers(0, h, 40)], -1)
+        valid = np.ones(40, bool)
+    elif case == "all_invalid":
+        xy = np.stack([rng.integers(b, w - b, 40),
+                       rng.integers(b, h - b, 40)], -1)
+        valid = np.zeros(40, bool)
+    elif case == "k1":
+        xy = np.asarray([[w // 2, h // 2]])
+        valid = np.ones(1, bool)
+    else:  # "wild_invalid": invalid rows far outside the image
+        wild = [(-10**6, 10**6), (10**6, -10**6), (-10**6, -10**6),
+                (10**6, 10**6), (2**30, 5), (5, -2**30), (-1, -1)]
+        inner = np.stack([rng.integers(b, w - b, 20),
+                          rng.integers(b, h - b, 20)], -1)
+        xy = np.concatenate([np.asarray(wild), inner])
+        valid = np.concatenate([np.zeros(len(wild), bool),
+                                rng.random(20) > 0.2])
+    return img, xy.astype(np.int32), valid
+
+
+@pytest.mark.parametrize("case", ["border_lines", "smaller_than_p",
+                                  "all_invalid", "k1", "wild_invalid"])
+@pytest.mark.parametrize("patch", [3, 5, 7, 9])
+def test_descriptor_edge_cases_match_jax(patch, case):
+    """gather_patches_plain and extract_patch_descriptors against JAX's
+    extract_patch_descriptors(use_pallas=False), exact: border lines,
+    images smaller than the patch (every row border-invalid, all zeros),
+    all rows invalid, one keypoint, invalid rows far outside the image."""
+    rng = np.random.default_rng(31 + patch)
+    img, xy, valid = _edge_case(case, patch, rng)
+    k = len(xy)
+    dj, bj = JM.extract_patch_descriptors(
+        jnp.asarray(img),
+        JH.KeyPoints(jnp.asarray(xy), jnp.ones(k, jnp.float32),
+                     jnp.asarray(valid)),
+        patch, use_pallas=False,
+    )
+    kt = TH.KeyPoints(torch.from_numpy(xy), torch.ones(k),
+                      torch.from_numpy(valid))
+    d_pad = cuda_gather.descriptor_width(patch)
+    for dt, bt in (
+        cuda_gather.gather_patches_plain(torch.from_numpy(img), kt.xy,
+                                         kt.valid, patch),
+        TM.extract_patch_descriptors(torch.from_numpy(img), kt, patch),
+    ):
+        assert dt.shape == (k, d_pad) and bt.shape == (k,)
+        np.testing.assert_array_equal(bt.numpy(), np.asarray(bj))
+        np.testing.assert_array_equal(dt.numpy(), np.asarray(dj))
+        assert not dt[~bt].any() and not dt[:, patch * patch * 3:].any()
+    n_valid = int(np.asarray(bj).sum())
+    if case in ("smaller_than_p", "all_invalid"):
+        assert n_valid == 0
+    elif case == "border_lines":
+        # Per line: inside, inside, outside, outside.
+        assert np.asarray(bj)[:8].tolist() == [True, True, False, False] * 2
+    else:
+        assert n_valid > 0
+
+
+@pytest.mark.parametrize("patch", [3, 5, 7])
+def test_descriptors_interior_match_pallas_gather(patch):
+    """Interior rows against the TPU kernel itself
+    (pano_tpu/ops/pallas_gather.gather_patches in interpret mode), its
+    packed b | g << 8 | r << 16 patches unpacked to channel order."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    from pano_tpu.ops import pallas_gather as PG
+
+    rng = np.random.default_rng(41 + patch)
+    h, w, k = 60, 300, 48
+    b = patch // 2
+    img = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    plane = np.zeros((64, 384), np.int32)
+    p32 = img.astype(np.int32)
+    plane[:h, :w] = p32[..., 0] | (p32[..., 1] << 8) | (p32[..., 2] << 16)
+    xs = rng.integers(b, w - b, k).astype(np.int32)
+    ys = rng.integers(b, h - b, k).astype(np.int32)
+    xs[:2], ys[:2] = (b, w - b - 1), (h - b - 1, b)  # interior corners
+    with pltpu.force_tpu_interpret_mode():
+        g = np.asarray(PG.gather_patches(
+            jnp.asarray(plane), jnp.asarray(ys), jnp.asarray(xs), h=h, w=w,
+            p=patch))                                      # (K, p*p)
+    want = np.stack([g & 0xFF, (g >> 8) & 0xFF, (g >> 16) & 0xFF], -1)
+    want = want.reshape(k, -1).astype(np.float32)
+    xy = torch.from_numpy(np.stack([xs, ys], -1))
+    desc, bv = cuda_gather.gather_patches(
+        torch.from_numpy(img), xy, torch.ones(k, dtype=torch.bool), patch)
+    assert bv.all()
+    np.testing.assert_array_equal(desc[:, :patch * patch * 3].numpy(), want)
 
 
 def _random_descs(rng, k, d_used=75, d_pad=128, dup_frac=0.3):
@@ -212,15 +333,18 @@ def test_wrappers_reject_unsupported_device():
     meta = dict(device="meta")
     img = torch.empty((8, 8, 3), dtype=torch.uint8, **meta)
     xy = torch.empty((4, 2), dtype=torch.int32, **meta)
-    bv = torch.empty((4,), dtype=torch.bool, **meta)
+    kv = torch.empty((4,), dtype=torch.bool, **meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda_gather.gather_patches(img, xy, bv, 5)
+        cuda_gather.gather_patches(img, xy, kv, 5)
     d = torch.empty((4, 128), **meta)
     with pytest.raises(ValueError, match="unsupported device"):
-        cuda_match.match_cores(d, bv, d, bv)
+        cuda_match.match_cores(d, kv, d, kv)
+    cpu = (torch.zeros((8, 8, 3), dtype=torch.uint8),
+           torch.zeros((4, 2), dtype=torch.int32),
+           torch.zeros(4, dtype=torch.bool))
     with pytest.raises(ValueError):
-        cuda_gather.gather_patches(
-            torch.zeros((8, 8, 3), dtype=torch.uint8),
-            torch.zeros((4, 2), dtype=torch.int64),
-            torch.zeros(4, dtype=torch.bool), 5,
-        )
+        cuda_gather.gather_patches(cpu[0], cpu[1].long(), cpu[2], 5)
+    with pytest.raises(ValueError, match="odd"):
+        cuda_gather.gather_patches(*cpu, 4)
+    with pytest.raises(ValueError, match="validity"):
+        cuda_gather.gather_patches(cpu[0], cpu[1], cpu[2][:3], 5)

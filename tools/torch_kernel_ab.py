@@ -1,20 +1,28 @@
 #!/usr/bin/env python3
-"""Time K1, K4a, K4b and K5 of one copy of the pano_tpu_torch package on
-the GPU, for comparing versions of the kernels in one machine session.
+"""Time the kernels of one copy of the pano_tpu_torch package on the GPU,
+for comparing versions of the kernels in one run on one machine.
 
     python3 tools/torch_kernel_ab.py DIR
 
 DIR holds a ``pano_tpu_torch`` package (this checkout's, or another
 version unpacked beside it, e.g. ``git archive <commit> pano_tpu_torch``);
 it builds its kernels into ``DIR/build``. The data and the timer are
-``chip_smoke.py``'s: the planted 4156x3117 pair and its 3154x5556 canvas,
-the K5 window from K4b with the ramp alpha. It prints one JSON line: each
-kernel's output against its plain version (torch.equal), its median time
-around the wrapper with L2 flushed (``ms``) and its device time alone
-(``device_ms``: the card warmed, a spin before each of 20 runs). Run the
-versions in turns (A, B, B, A) in one call: cards and calls differ.
+``chip_smoke.py``'s: the planted 4156x3117 pair, its keypoints (K = 8192)
+and its 3154x5556 canvas, the K5 window from K4b with the ramp alpha. It
+prints one JSON line: each kernel's output against its plain version
+(torch.equal), its median time around the wrapper with L2 flushed
+(``ms``) and its device time alone (``device_ms``: the card warmed, a
+spin before each of 20 runs) for K1, K2 (on the left image's keypoints),
+K3, K4a, K4b, K5 and a one-element ``fill_`` (the launch floor); and the
+describe step of a pair (``describe_ms``:
+both images' ``extract_patch_descriptors``, host clock around
+synchronizes, median of 20). K2 before its border test moved into the
+kernel took the border flags where it now takes the keypoints' validity;
+both are handled. Run the versions in turns (A, B, B, A) in one call:
+cards and calls differ.
 """
 
+import inspect
 import json
 import pathlib
 import sys
@@ -40,7 +48,10 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     sys.path.insert(1, str(pathlib.Path(__file__).resolve().parents[1]))
     import chip_smoke as C
-    from pano_tpu_torch.ops import cuda_compose, cuda_harris, cuda_warp
+    from pano_tpu_torch.ops import (
+        cuda_compose, cuda_gather, cuda_harris, cuda_match, cuda_warp, harris,
+        match,
+    )
     from pano_tpu_torch.pipeline import fused_canvas_geometry
 
     left_np, right_np = C.synthetic_pair(0)
@@ -61,8 +72,32 @@ def main() -> None:
             cuda_compose.compose_canvas(*args),
             cuda_compose.compose_canvas_plain(*args))
     h = DEFAULT_CONFIG.harris
+    p = h.patch_size
+    kps_l = harris.harris_detect(left, h)
+    kps_r = harris.harris_detect(right, h)
+    desc_l, bv_l = match.extract_patch_descriptors(left, kps_l, p)
+    desc_r, bv_r = match.extract_patch_descriptors(right, kps_r, p)
+    xy_l = kps_l.xy.contiguous()
+    takes_kp_valid = "kp_valid" in inspect.signature(
+        cuda_gather.gather_patches).parameters
+    flags = kps_l.valid if takes_kp_valid else bv_l
+
+    def k2():
+        return cuda_gather.gather_patches(left, xy_l, flags, p)
+
+    def outputs(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    equal["K2"] = all(map(torch.equal, outputs(k2()), outputs(
+        cuda_gather.gather_patches_plain(left, xy_l, flags, p))))
+    k3 = (desc_r, bv_r, desc_l, bv_l)
+    equal["K3"] = all(map(torch.equal, cuda_match.match_cores(*k3),
+                          cuda_match.match_cores_plain(*k3)))
+    one = torch.zeros(1, device="cuda")
     runs = {
         "K1": lambda: cuda_harris.harris_scores(left, h.k, h.nms_thresh),
+        "K2": k2,
+        "K3": lambda: cuda_match.match_cores(*k3),
         "K4a": lambda: cuda_warp.warp_compose_overlay(*k4a),
         "K4b": lambda: cuda_warp.warp_packed(right, geo.m_inv, geo.window,
                                              True),
@@ -70,14 +105,30 @@ def main() -> None:
             right, geo.m_inv, geo.window, True, emit_weight=False),
         "K5_feather": lambda: cuda_compose.compose_canvas(*k5["feather"]),
         "K5_overlay": lambda: cuda_compose.compose_canvas(*k5["overlay"]),
+        "launch_floor": lambda: one.fill_(1.0),  # a one-element fill_
     }
     timer = C.Timer(torch)
     ms = {k: timer(fn) for k, fn in runs.items()}
     timer.warm()
     device_ms = {k: timer(fn, reps=20, spin=True) for k, fn in runs.items()}
+
+    def describe():
+        match.extract_patch_descriptors(right, kps_r, p)
+        match.extract_patch_descriptors(left, kps_l, p)
+
+    walls = []
+    for i in range(22):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        describe()
+        torch.cuda.synchronize()
+        if i >= 2:
+            walls.append((time.perf_counter() - t0) * 1e3)
     print(json.dumps({"dir": vdir, "card": C.nvidia_smi_line(),
                       "build_s": round(build_s, 1), "equal": equal,
-                      "ms": ms, "device_ms": device_ms}), flush=True)
+                      "ms": ms, "device_ms": device_ms,
+                      "describe_ms": float(np.median(walls)),
+                      "describe_ms_all": walls}), flush=True)
 
 
 if __name__ == "__main__":
