@@ -86,11 +86,35 @@ failure.
    panorama covering the planted canvas (+-2 px per step), K1 x6, K2 x6,
    K3 x3, K4a x3; one call's wall time.
 
-The last three lines are the nvidia-smi line, a JSON object with the
-per-kernel numbers (each kernel's launches from the path that runs it:
-K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
-overlay chain), and {"ok": true, ...}. The whole run takes about a
-minute of command time on an H100, the build included.
+12. cli: the strip's four images and the planted pair written as .ppm
+   with the port's io (its codec named on the `cli data` line), each
+   read back by the numpy PNM codec; one image's decode and the chain
+   panorama's encode timed through both codecs; a child's start-up
+   (import, CUDA context, library load) timed; then
+   (a) `python -m pano_tpu_torch.cli gpu --mode chain --json` on the
+   strip in a child process: exit 0, its printed lines, the panorama
+   read back equal (np.array_equal) to phase 9's overlay chain, the
+   --json stats (backend cuda, ok, the shape, the printed stage names);
+   (b) `gpu --mode fold --blend feather` (K4b + K5) and `gpu --timing
+   stages` (K1-K4a, the stage lines) on the pair in child processes,
+   each against the planted canvas and the left image (+-1); (c)
+   cli.main in process for chain and for fold with feather, the launch
+   counts equal to phases 9 and 6; (d) `serve gpu --mode chain` in a
+   child process with four jobs (the strip, the strip with feather, the
+   strip again from the staging cache, one image alone): exit 0, status
+   lines Job 1-3 ok and Job 4 failed in order, no staging failure on
+   stderr, jobs 1 and 3 byte-equal to (a)'s file; make_staging_decoder
+   on the card returns CUDA tensors equal to the files; (e) `gpu` with
+   CUDA_VISIBLE_DEVICES="" exits 255 with its error on stderr and
+   writes nothing; (f) one line: (a)'s process wall and its own Total
+   Execution Time, each serve job's ms, the codec. The children load the
+   library phase 2 built.
+
+13. The last three lines are the nvidia-smi line, a JSON object with
+the per-kernel numbers (each kernel's launches from the path that runs
+it: K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
+overlay chain), and {"ok": true, ...}. The whole run takes about two
+minutes of command time on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -100,8 +124,11 @@ import contextlib
 import functools
 import io
 import json
+import os
 import re
 import subprocess
+import sys
+import tempfile
 import time
 
 import numpy as np
@@ -561,6 +588,250 @@ def chain_breakdown(torch, pipeline, cfg, strip_np, strip, reps=3) -> dict:
                              device=DEVICE)
         timed("panorama_host_copy", lambda: pipeline._host_fetch(canvas))
     return {k: round(float(np.median(v)), 3) for k, v in times.items()}
+
+
+def run_python(args, stdin=None, env=None):
+    """`python ARGS` in a child process, from the checkout's root (it
+    loads the library this run built): (completed process, wall ms)."""
+    env = dict(os.environ if env is None else env)
+    for name in ("PANO_TPU_FORCE_CPU", "PANO_TPU_PROFILE"):
+        env.pop(name, None)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+        input=stdin, capture_output=True, text=True, timeout=600)
+    return proc, (time.perf_counter() - t0) * 1e3
+
+
+def run_cli(args, stdin=None, env=None):
+    """`python -m pano_tpu_torch.cli ARGS` in a child process."""
+    return run_python(["-m", "pano_tpu_torch.cli", *args], stdin, env)
+
+
+# A child's start-up, split: importing torch and the CLI, making the CUDA
+# context (a first tensor on the card), loading the kernel library.
+STARTUP = """
+import json, time
+t0 = time.perf_counter()
+import torch, pano_tpu_torch.cli
+t1 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+t2 = time.perf_counter()
+from pano_tpu_torch import _build
+_build.lib()
+t3 = time.perf_counter()
+print(json.dumps({"import_ms": (t1 - t0) * 1e3, "cuda_context_ms":
+                  (t2 - t1) * 1e3, "library_load_ms": (t3 - t2) * 1e3}))
+"""
+
+
+def timed(fn):
+    """(fn(), its wall ms)."""
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_cli_lines(proc, want, n_dev, tag):
+    """Exit code 0 and the printed lines (times as x.xxx): `want` after
+    the backend and device-count lines."""
+    check(proc.returncode == 0,
+          f"{tag}: exit {proc.returncode}\n{proc.stdout}\n{proc.stderr}")
+    check_lines(proc.stdout.splitlines(), [
+        "PyTorch backend: cuda", f"Number of Available Devices: {n_dev}",
+        *want], tag)
+
+
+def planted_pair_diff(pano, left, slack, tag) -> int:
+    """The planted pair's canvas (each side `slack` = (lo, hi) rows or
+    columns off) and the overlap against the left image (host arrays):
+    max |d|."""
+    plant = (H_IMG + DY, W_IMG + DX)
+    check(all(slack[0] <= a - b <= slack[1]
+              for a, b in zip(pano.shape[:2], plant)),
+          f"{tag}: canvas {pano.shape} vs planted {plant}")
+    return int(np.abs(pano[DY:H_IMG, DX:W_IMG].astype(np.int16)
+                      - left[DY:H_IMG, DX:W_IMG]).max())
+
+
+def cli_phase(torch, mods, strip, strip_np, pair_np, chain_ref,
+              chain_launches, fold_launches) -> None:
+    """Phase 12: the strip and the planted pair as .ppm files (written
+    with the port's io), then (a) the chain through the CLI in a child
+    process, its panorama equal to phase 9's; (b) fold with feather and
+    the staged pair in child processes, against the planted canvas; (c)
+    cli.main in process, with the launch counts of phases 9 and 6; (d)
+    serve in a child process, four jobs in order, and the staging decoder
+    in process; (e) gpu with no visible CUDA device: exit 255, no file."""
+    from pano_tpu_torch import _build, cli
+    from pano_tpu_torch import io as tio
+
+    left_np = pair_np[0]
+    n = len(strip_np)
+    n_dev = torch.cuda.device_count()
+    total_exec = re.compile(r"^Total Execution Time \(GPU\): (\d+\.\d{3}) ms$",
+                            re.M)
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        t0 = time.perf_counter()
+        strip_paths = [os.path.join(d, f"strip{i}.ppm") for i in range(n)]
+        pair_paths = [os.path.join(d, "left.ppm"), os.path.join(d, "right.ppm")]
+        for path, img in zip(strip_paths + pair_paths, strip_np + [*pair_np]):
+            check(tio.imwrite_bgr(path, img), f"cli: writing {path}")
+        log("cli data", codec=tio.codec(), files=len(strip_paths) + 2,
+            mb_each=round(os.path.getsize(strip_paths[0]) / 1e6, 3),
+            write_seconds=round(time.perf_counter() - t0, 3))
+        out = lambda name: os.path.join(d, name)  # noqa: E731
+        # What the files cost at this size, through the codec in use and
+        # through the numpy PNM codec, which must read back every file.
+        for path, img in zip(strip_paths + pair_paths, strip_np + [*pair_np]):
+            check(np.array_equal(tio.read_pnm(path), img),
+                  f"cli: the numpy codec misreads {path}")
+        got, decode_ms = timed(lambda: tio.imread_bgr(strip_paths[0]))
+        check(np.array_equal(got, strip_np[0]), "cli: imread_bgr")
+        _, pnm_decode_ms = timed(lambda: tio.read_pnm(strip_paths[0]))
+        _, encode_ms = timed(lambda: tio.imwrite_bgr(out("enc.ppm"),
+                                                     chain_ref))
+        _, pnm_encode_ms = timed(lambda: tio.write_ppm(out("enc_np.ppm"),
+                                                       chain_ref))
+        check(np.array_equal(tio.read_pnm(out("enc.ppm")), chain_ref)
+              and np.array_equal(tio.imread_bgr(out("enc_np.ppm")),
+                                 chain_ref), "cli: the panorama's encodes")
+        log("cli codec", codec=tio.codec(), image_decode_ms=round(decode_ms, 3),
+            numpy_pnm_decode_ms=round(pnm_decode_ms, 3),
+            panorama_encode_ms=round(encode_ms, 3),
+            numpy_pnm_encode_ms=round(pnm_encode_ms, 3),
+            panorama_mb=round(chain_ref.nbytes / 1e6, 3))
+        # A child's start-up, before it reads an argument.
+        proc, startup_wall = run_python(["-c", STARTUP])
+        check(proc.returncode == 0, f"cli startup: {proc.stderr}")
+        log("cli startup", process_wall_ms=round(startup_wall, 3),
+            **{k: round(v, 3) for k, v in json.loads(
+                proc.stdout.strip().splitlines()[-1]).items()})
+
+        # (a) the chain, as a user runs it
+        proc, chain_wall = run_cli(["gpu", "--mode", "chain", "--json",
+                                    out("chain.json"), "--out",
+                                    out("chain.ppm"), *strip_paths])
+        steps = [f"Stitching image {i + 1} of {n}..." for i in range(1, n)]
+        check_cli_lines(proc, [
+            *steps, f"{TOTAL} (GPU): x.xxx ms",
+            f"Stitched result saved to {out('chain.ppm')}", "",
+            "Total Execution Time (GPU): x.xxx ms"], n_dev, "cli chain")
+        got = tio.imread_bgr(out("chain.ppm"))
+        check(got is not None and np.array_equal(got, chain_ref),
+              "cli chain: the panorama differs from phase 9's")
+        stats = json.load(open(out("chain.json")))
+        labels = [m.group(1) for m in map(STAGE_LINE.match,
+                                          proc.stdout.splitlines()) if m]
+        check(stats["backend"] == "cuda" and stats["ok"] is True
+              and stats["impl"] == "gpu" and stats["mode"] == "chain"
+              and stats["panorama_shape"] == list(chain_ref.shape)
+              and [r["stage"] for r in stats["stages"]] == labels,
+              f"cli chain: --json {stats}")
+        chain_total = float(total_exec.search(proc.stdout).group(1))
+        log("cli chain", process_wall_ms=round(chain_wall, 3),
+            total_execution_ms=chain_total, canvas=got.shape,
+            equal_to_phase9=True, json_stages=labels)
+
+        # (b) fold with feather (K4b + K5), and the staged pair (K1-K4a)
+        proc, wall_f = run_cli(["gpu", "--mode", "fold", "--blend",
+                                "feather", "--out", out("fold.ppm"),
+                                *pair_paths])
+        check_cli_lines(proc, [
+            "Stitching image 2 of 2...", f"{STAGES[-1]} (GPU): x.xxx ms",
+            f"{TOTAL} (GPU): x.xxx ms",
+            f"Stitched result saved to {out('fold.ppm')}", "",
+            "Total Execution Time (GPU): x.xxx ms"], n_dev, "cli fold feather")
+        d_fold = planted_pair_diff(tio.imread_bgr(out("fold.ppm")), left_np,
+                                   (0, 1), "cli fold feather")
+        check(d_fold <= 1, f"cli fold feather: overlap max |d| {d_fold}")
+        proc, wall_s = run_cli(["gpu", "--timing", "stages", "--out",
+                                out("staged.ppm"), *pair_paths])
+        check_cli_lines(proc, [
+            "Stitching image 2 of 2...",
+            *(f"{s} (GPU): x.xxx ms" for s in (STAGES[0], *STAGES)),
+            f"{TOTAL} (GPU): x.xxx ms",
+            f"Stitched result saved to {out('staged.ppm')}", "",
+            "Total Execution Time (GPU): x.xxx ms"], n_dev, "cli staged")
+        d_staged = planted_pair_diff(tio.imread_bgr(out("staged.ppm")),
+                                     left_np, (-1, 1), "cli staged")
+        check(d_staged <= 1, f"cli staged: overlap max |d| {d_staged}")
+        log("cli fold", feather_overlap_max_abs_diff=d_fold,
+            feather_process_wall_ms=round(wall_f, 3),
+            staged_overlap_max_abs_diff=d_staged,
+            staged_process_wall_ms=round(wall_s, 3))
+
+        # (c) the launches of cli.main, in process
+        counts = {}
+        for tag, args, want in (
+                ("chain", ["--mode", "chain", *strip_paths], chain_launches),
+                ("fold feather", ["--mode", "fold", "--blend", "feather",
+                                  *pair_paths], fold_launches)):
+            for mod, attr in mods.values():
+                setattr(mod, attr, 0)
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(["gpu", *args, "--out", out("main.ppm")])
+            torch.cuda.synchronize()
+            counts[tag] = {k: getattr(mod, attr)
+                           for k, (mod, attr) in mods.items()}
+            check(rc == 0 and counts[tag] == want,
+                  f"cli.main {tag}: exit {rc}, launches {counts[tag]} "
+                  f"(want {want})")
+        log("cli launches", chain=counts["chain"],
+            fold_feather=counts["fold feather"])
+
+        # (d) serve: the strip twice (the second from the staging cache),
+        # with feather between, then a job of one image, which fails
+        strip_args = " ".join(strip_paths)
+        jobs = (f"{strip_args} --out {out('o1.ppm')}\n"
+                f"{strip_args} --blend feather --out {out('o2.ppm')}\n"
+                f"{strip_args} --out {out('o3.ppm')}\n"
+                f"{strip_paths[0]} --out {out('o4.ppm')}\n"
+                "quit\n")
+        proc, serve_wall = run_cli(["serve", "gpu", "--mode", "chain"],
+                                   stdin=jobs)
+        check(proc.returncode == 0, f"serve: exit {proc.returncode}\n"
+              f"{proc.stdout}\n{proc.stderr}")
+        status = re.compile(r"^Job (\d+) (ok|failed) (\S+): (\d+\.\d{3}) ms$")
+        jobs_seen = [m.groups() for m in map(status.match,
+                                             proc.stdout.splitlines()) if m]
+        check([(j, st) for j, st, _, _ in jobs_seen]
+              == [("1", "ok"), ("2", "ok"), ("3", "ok"), ("4", "failed")],
+              f"serve: status lines {jobs_seen}\n{proc.stdout}")
+        check("staging" not in proc.stderr,
+              f"serve: a staging failure was reported: {proc.stderr}")
+        o1, o3 = (open(out(f), "rb").read() for f in ("o1.ppm", "o3.ppm"))
+        check(o1 == o3 == open(out("chain.ppm"), "rb").read(),
+              "serve: jobs 1 and 3 differ from each other or from (a)")
+        check(tio.imread_bgr(out("o2.ppm")) is not None
+              and not os.path.exists(out("o4.ppm")), "serve: job outputs")
+        job_ms = [float(ms) for _, _, _, ms in jobs_seen]
+        staged = cli.make_staging_decoder(torch.device("cuda"), 8)(
+            strip_paths)
+        for path, dev in zip(strip_paths, strip):
+            t = staged[path]
+            check(isinstance(t, torch.Tensor) and t.device.type == "cuda"
+                  and t.dtype == torch.uint8 and torch.equal(t, dev),
+                  f"serve staging: {path} is not the file on the card")
+        del staged
+        log("cli serve", job_ms=job_ms, process_wall_ms=round(serve_wall, 3))
+
+        # (e) no visible CUDA device: an error, never a CPU run
+        proc, _ = run_cli(["gpu", "--out", out("none.ppm"), *pair_paths],
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+        check(proc.returncode == 255 and "CUDA device" in proc.stderr
+              and not os.path.exists(out("none.ppm")),
+              f"cli without a card: exit {proc.returncode}, "
+              f"stderr {proc.stderr!r}")
+        log("cli no card", exit=proc.returncode,
+            stderr=proc.stderr.strip().splitlines()[-1])
+
+    # (f) the numbers of this phase on one line
+    log("cli numbers", chain_process_wall_ms=round(chain_wall, 3),
+        chain_total_execution_ms=chain_total, serve_job_ms=job_ms,
+        codec=tio.codec())
 
 
 def main() -> None:
@@ -1103,6 +1374,7 @@ def main() -> None:
         walls = [wall]
         if tag == "overlay":  # warm calls: median of 3, each equal
             chain_launches = launches_c
+            chain_ref = out  # phase 12's CLI must write these bytes
             torch.cuda.reset_peak_memory_stats()
             walls = []
             for _ in range(3):
@@ -1185,7 +1457,11 @@ def main() -> None:
         call_ms=round(wall, 3), card=f"'{smi}'")
     del out
 
-    # 12. the record lines
+    # 12. the CLI and serve, on files, in child processes and in process
+    cli_phase(torch, mods, strip, strip_np, (left_np, right_np), chain_ref,
+              chain_launches, launches_f)
+    del chain_ref
+    # 13. the record lines
     all_launches = {**launches, "K4b": launches_f["K4b"],
                     "K5": launches_f["K5"], "K6": chain_launches["K6"]}
     print(smi)

@@ -627,3 +627,98 @@ def test_chain_mode_on_gpu_matches_cpu(blend):
     h, w = min(got.shape[0], want.shape[0]), min(got.shape[1], want.shape[1])
     d = np.abs(got[:h, :w].astype(int) - want[:h, :w].astype(int)).max(-1)
     assert (d > 3).mean() < 0.01
+
+
+@pytest.mark.parametrize("shape", [(1, 1), (97, 121), (3117, 4156)])
+def test_push_image_copies_to_the_card(shape):
+    """timer.push_image from a worker thread (as serve's decoder calls
+    it): a contiguous CUDA uint8 tensor equal to the host image, the copy
+    finished when it returns; a strided host view is copied too."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pano_tpu_torch.timer import push_image
+
+    img = _img(shape, 70)
+    with ThreadPoolExecutor(1) as pool:
+        got = pool.submit(push_image, img, torch.device("cuda")).result()
+    assert got.device.type == "cuda" and got.dtype == torch.uint8
+    assert got.is_contiguous() and tuple(got.shape) == shape + (3,)
+    assert torch.equal(got.cpu(), torch.from_numpy(img))
+    view = img[:, ::-1]
+    assert torch.equal(push_image(view, "cuda").cpu(),
+                       torch.from_numpy(view.copy()))
+
+
+def test_staging_decoder_stages_on_the_card(tmp_path):
+    """serve's decoder on gpu: CUDA tensors equal to the files, a cache
+    hit returns the same tensor, nothing printed about a failure."""
+    import contextlib
+    import io
+
+    from pano_tpu_torch import cli, io as tio
+
+    paths = []
+    for i in range(3):
+        p = str(tmp_path / f"s{i}.ppm")
+        tio.write_ppm(p, _img((33 + i, 47), 71 + i))
+        paths.append(p)
+    dec = cli.make_staging_decoder(torch.device("cuda"), 8)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        first = dec(paths)
+        again = dec(paths)
+    assert err.getvalue() == ""
+    for p in paths:
+        t = first[p]
+        assert isinstance(t, torch.Tensor) and t.device.type == "cuda"
+        assert t.dtype == torch.uint8
+        assert torch.equal(t.cpu(), torch.from_numpy(tio.imread_bgr(p)))
+        assert again[p] is t
+
+
+def test_cli_gpu_runs_on_the_card(tmp_path):
+    """cli.run('gpu') on a small chain: its own lines (backend, device
+    count, the GPU tag), every kernel of the chain launched, and the
+    panorama of stitch_all_images on the card."""
+    import contextlib
+    import io
+    import json
+
+    from pano_tpu_torch import DEFAULT_CONFIG, cli, io as tio
+    from pano_tpu_torch import stitch_all_images
+    from pano_tpu_torch.ops import cuda_compose, cuda_harris, cuda_warp
+
+    r = np.random.default_rng(66)
+    base = r.integers(0, 60, (128, 280, 3)).astype(np.uint8)
+    for _ in range(240):
+        y, x = r.integers(2, 118), r.integers(2, 270)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    paths = []
+    for i, x0 in enumerate((0, 70, 140)):
+        paths.append(str(tmp_path / f"s{i}.ppm"))
+        tio.write_ppm(paths[-1], base[:, x0:x0 + 140])
+    out, stats = str(tmp_path / "p.ppm"), str(tmp_path / "s.json")
+    for mod, attr in ((cuda_harris, "launches"),
+                      (cuda_warp, "packed_launches"),
+                      (cuda_compose, "chain_launches")):
+        setattr(mod, attr, 0)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.run("gpu", [*paths, "--mode", "chain", "--out", out,
+                             "--json", stats])
+    lines = buf.getvalue().splitlines()
+    assert rc == 0, lines
+    assert lines[:2] == ["PyTorch backend: cuda",
+                         f"Number of Available Devices: "
+                         f"{torch.cuda.device_count()}"]
+    assert lines[-1].startswith("Total Execution Time (GPU): ")
+    assert (cuda_harris.launches, cuda_warp.packed_launches,
+            cuda_compose.chain_launches) == (4, 2, 2)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = stitch_all_images([tio.imread_bgr(p) for p in paths],
+                                 DEFAULT_CONFIG, mode="chain",
+                                 device="cuda")
+    np.testing.assert_array_equal(tio.imread_bgr(out), want)
+    s = json.load(open(stats))
+    assert (s["backend"], s["ok"], s["panorama_shape"]) == (
+        "cuda", True, list(want.shape))
