@@ -110,11 +110,33 @@ failure.
    Execution Time, each serve job's ms, the codec. The children load the
    library phase 2 built.
 
-13. The last three lines are the nvidia-smi line, a JSON object with
+13. shard (pano_tpu_torch.parallel.shard), on phase 3's data:
+   (a) batched K1 over the strip's four images in one launch:
+   torch.equal to the plain version and to four single launches; its
+   time (`ms`, `device_ms`) beside the four single launches' device time;
+   (b) batched K4b over the chain's three windows (the planted globals,
+   the ramp alpha): the same checks and times; (c)
+   stitch_all_images_sharded on a mesh of the card: chain and auto equal
+   byte for byte to phases 9 and 10's panoramas (K1 batched x1, K4b
+   batched x1), fold the staged fold under the tag "Sharded"; the chain's
+   call against the one-device chain's in turns (one-device, sharded,
+   sharded, one-device), peak memory, launches; (d) the card repeated:
+   chain on a mesh of data 3 (K1 and K4b batched x3), equal to phase 9's,
+   and the fold on hyp 4, each pair's H within 0.5 px of the planted
+   one; (e) stitch_pairs_batched on four 4156x3117 pairs (the strip's
+   three adjacent pairs and phase 3's pair): each estimate row
+   torch.equal to PairStitcher._fused_estimate_impl's, each canvas
+   torch.equal to PairStitcher.composite of its H, the batch's wall time
+   against the same four pairs one by one, in turns; (f) `python -m
+   pano_tpu_torch.cli sharded --mode chain` in a child process: its lines,
+   and its file equal to phase 9's panorama.
+
+14. The last three lines are the nvidia-smi line, a JSON object with
 the per-kernel numbers (each kernel's launches from the path that runs
 it: K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
-overlay chain), and {"ok": true, ...}. The whole run takes about two
-minutes of command time on an H100, the build included.
+overlay chain, the batched K1 and K4b from phase 13's chain on the
+card), and {"ok": true, ...}. The whole run takes about three minutes of
+command time on an H100, the build included.
 """
 
 from __future__ import annotations
@@ -157,6 +179,14 @@ KERNELS = {
     "K6": ("compose_chain_canvas", "pano_tpu_torch/csrc/compose.cu",
            "pano_tpu/ops/pallas_compose.py:249"),
 }
+# The batched entries of K1 and K4b (the TPU kernels' batched grids, under
+# their custom_vmap rules), phase 13.
+BATCHED = {
+    "K1b": ("harris_scores_batched", "pano_tpu_torch/csrc/harris.cu",
+            "pano_tpu/ops/pallas_harris.py:406"),
+    "K4bb": ("warp_packed_batched", "pano_tpu_torch/csrc/warp.cu",
+             "pano_tpu/ops/pallas_warp.py:870"),
+}
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel could
 # take is the larger of its bytes over the memory rate and its operations
@@ -187,11 +217,13 @@ CHAIN_OPS_PER_PX = 27
 
 # Device times of other variants of a kernel's timed call, logged beside
 # its device_ms: K4b without the ramp alpha and without the weight, K5 and
-# K6 with overlay, K1 at its other NMS windows.
+# K6 with overlay, K1 at its other NMS windows; for a batched entry, its
+# elements as single launches, one after another.
 K1_WINDOWS = (5, 7, 9, 11, 15)  # K1's other NMS windows checked and timed
 EXTRA_DEVICE_MS = ("device_ms_no_alpha", "device_ms_no_weight",
                    "device_ms_overlay",
-                   *(f"device_ms_nms{n}" for n in K1_WINDOWS))
+                   *(f"device_ms_nms{n}" for n in K1_WINDOWS),
+                   "singles_device_ms")
 
 STAGE_LINE = re.compile(r"^(.+): (\d+\.\d{3}) ms$")
 STAGES = ("Harris Corner Detection", "Harris Corner Matching",
@@ -834,6 +866,302 @@ def cli_phase(torch, mods, strip, strip_np, pair_np, chain_ref,
         codec=tio.codec())
 
 
+def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
+                chain_ref, auto_ref) -> dict:
+    """Phase 13: the batched K1 and K4b against their plain versions and
+    single launches, the sharded modes on a mesh of the card and on the
+    card repeated, the batched pairs, and the sharded CLI. Fills res
+    with the batched entries' numbers; returns the launches of the
+    sharded chain on the card."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, pipeline
+    from pano_tpu_torch import io as tio
+    from pano_tpu_torch import _build
+    from pano_tpu_torch.ops import cuda_harris, cuda_warp
+    from pano_tpu_torch.parallel import shard
+
+    hopts = DEFAULT_CONFIG.harris
+    n = len(strip)
+    card = torch.device(DEVICE)
+
+    # (a) batched K1 over the strip's four images
+    stack = torch.stack(strip)
+    args = (hopts.k, hopts.nms_thresh)
+    got = cuda_harris.harris_scores_batched(stack, *args)
+    want = cuda_harris.harris_scores_batched_plain(stack, *args)
+    check(torch.equal(got, want), "K1 batched differs from the plain version")
+    for i in range(n):
+        check(torch.equal(got[i], cuda_harris.harris_scores(strip[i], *args)),
+              f"K1 batched: image {i} differs from its single launch")
+
+    def k1_batched():
+        return cuda_harris.harris_scores_batched(stack, *args)
+
+    def k1_singles():
+        return [cuda_harris.harris_scores(im, *args) for im in strip]
+
+    res["K1b"] = dict(
+        max_abs_err=max(check_harris(got[i], want[i]) for i in range(n)),
+        ms=timer(k1_batched),
+        plain_ms=timer(lambda: cuda_harris.harris_scores_batched_plain(
+            stack, *args), reps=3),
+        library_ms=None,
+        bound=bound(nbytes(stack, got), n * H_IMG * W_IMG * K1_OPS_PER_PX),
+    )
+    log("K1b harris_scores_batched", shape=tuple(got.shape),
+        equal_to_plain=True, equal_to_single_launches=True, **res["K1b"])
+    del got, want
+
+    # (b) batched K4b over the chain's three windows, with the ramp alpha
+    planted = [translation(x, y) for x, y in STRIP]
+    t_mat, ch, cw = pipeline.global_canvas_geometry(strip_np, planted, 0)
+    plan = pipeline.global_warp_plan(strip, planted, 0, t_mat, ch, cw)
+    check([lvl for *_, lvl in plan] == [0] * (n - 1),
+          f"K4b batched: mip levels {[lvl for *_, lvl in plan]}")
+    srcs = [strip[i] for i, *_ in plan]
+    maps = [m for _, m, _, _ in plan]
+    wins = [w for _, _, w, _ in plan]
+    got = cuda_warp.warp_packed_batched(srcs, maps, wins)
+    want = cuda_warp.warp_packed_batched_plain(srcs, maps, wins)
+    err = 0.0
+    for (rgb, w), (rgb_p, w_p), src, m, win in zip(got, want, srcs, maps,
+                                                  wins):
+        one = cuda_warp.warp_packed(src, m, win)
+        check(torch.equal(rgb, rgb_p) and torch.equal(w, w_p),
+              f"K4b batched: window {win} differs from the plain version")
+        check(torch.equal(rgb, one[0]) and torch.equal(w, one[1]),
+              f"K4b batched: window {win} differs from its single launch")
+        err = max(err, check_warp(rgb, rgb_p, win, "K4b batched"),
+                  float((w - w_p).abs().max()))
+    win_px = sum((w[2] - w[0]) * (w[3] - w[1]) for w in wins)
+
+    def k4b_batched():
+        return cuda_warp.warp_packed_batched(srcs, maps, wins)
+
+    def k4b_singles():
+        return [cuda_warp.warp_packed(src, m, win)
+                for src, m, win in zip(srcs, maps, wins)]
+
+    res["K4bb"] = dict(
+        max_abs_err=err, ms=timer(k4b_batched),
+        plain_ms=timer(lambda: cuda_warp.warp_packed_batched_plain(
+            srcs, maps, wins), reps=3),
+        library_ms=None,
+        bound=bound(nbytes(*srcs, *(t for pr in got for t in pr)),
+                    win_px * (WARP_OPS_PER_PX + ALPHA_OPS_PER_PX)),
+    )
+    log("K4bb warp_packed_batched", windows=wins, equal_to_plain=True,
+        equal_to_single_launches=True, **res["K4bb"])
+    del got, want
+
+    # The device times, the card warmed first (as phase 4 takes them).
+    timer.warm()
+    for k, batched, singles in (("K1b", k1_batched, k1_singles),
+                                ("K4bb", k4b_batched, k4b_singles)):
+        res[k]["device_ms"] = timer(batched, spin=True)
+        res[k]["singles_device_ms"] = timer(singles, spin=True)
+    log("batched device time",
+        **{f"{k}_{f}": res[k][f] for k in ("K1b", "K4bb")
+           for f in ("device_ms", "singles_device_ms")})
+    del stack
+
+    # (c) the sharded modes on a mesh of the card
+    steps = [f"Stitching image {i + 1} of {n}..." for i in range(1, n)]
+    total = f"{TOTAL} (Sharded): x.xxx ms"
+    mesh1 = shard.make_mesh()
+    check(mesh1.shape == {"data": torch.cuda.device_count(), "hyp": 1},
+          f"make_mesh(): {mesh1}")
+
+    def sharded(mode, mesh, imgs=strip):
+        return shard.stitch_all_images_sharded(imgs, DEFAULT_CONFIG,
+                                               "Sharded", mesh, mode)
+
+    n_pairs = n * (n - 1) // 2
+    chain_want = {**none, "K1b": 1, "K2": 2 * (n - 1), "K3": n - 1,
+                  "K4bb": 1, "K6": n - 1}
+    torch.cuda.reset_peak_memory_stats()
+    out, lines, launches_c, first = run_mode(
+        torch, mods, chain_want, "sharded chain",
+        lambda: sharded("chain", mesh1))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_lines(lines, [*steps, total], "sharded chain")
+    check(np.array_equal(out, chain_ref),
+          "sharded chain: the panorama differs from phase 9's")
+
+    def one_device_chain():
+        return pipeline.stitch_all_images(strip, DEFAULT_CONFIG, True, "",
+                                          DEVICE, "chain")
+
+    walls = {"one_device": [], "sharded": []}
+    for tag in ("one_device", "sharded", "sharded", "one_device"):
+        fn = one_device_chain if tag == "one_device" else (
+            lambda: sharded("chain", mesh1))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            again = fn()
+        walls[tag].append((time.perf_counter() - t0) * 1e3)
+        check(np.array_equal(again, chain_ref), f"chain {tag} differs")
+    log("sharded chain", mesh=mesh1.shape, equal_to_phase9=True,
+        launches=launches_c, first_call_ms=round(first, 3),
+        call_ms_in_turns={k: [round(x, 3) for x in v]
+                          for k, v in walls.items()},
+        peak_mem_mib=round(peak, 1), card=f"'{smi}'")
+
+    imgs_auto = [strip[i] for i in AUTO_ORDER]
+    torch.cuda.reset_peak_memory_stats()
+    out, lines, launches_a, wall = run_mode(
+        torch, mods, {**none, "K1b": 1, "K2": n, "K3": n_pairs, "K4bb": 1,
+                      "K6": n - 1},
+        "sharded auto", lambda: sharded("auto", mesh1, imgs_auto))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    order = [x for x in lines if x.startswith("Auto-ordering")]
+    check(len(order) == 1 and order[0].endswith(f"placed {n} of {n}")
+          and STAGE_LINE.sub(r"\1: x.xxx ms", lines[-1]) == total,
+          f"sharded auto: printed lines {lines}")
+    check(np.array_equal(out, auto_ref),
+          "sharded auto: the panorama differs from phase 10's")
+    log("sharded auto", order=AUTO_ORDER, equal_to_phase10=True,
+        launches=launches_a, call_ms=round(wall, 3),
+        peak_mem_mib=round(peak, 1))
+
+    fold_stages = [f"{s} (Sharded): x.xxx ms" for s in (STAGES[0], *STAGES)]
+    torch.cuda.reset_peak_memory_stats()
+    out, lines, launches_f, wall = run_mode(
+        torch, mods, {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1),
+                      "K3": n - 1, "K4a": n - 1},
+        "sharded fold", lambda: sharded("fold", mesh1))
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    check_lines(lines, [x for step in steps for x in (step, *fold_stages)]
+                + [total], "sharded fold")
+    plant = strip_shape()
+    check(all(0 <= a - b <= 2 * (n - 1)
+              for a, b in zip(out.shape[:2], plant)),
+          f"sharded fold: canvas {out.shape} vs planted {plant}")
+    log("sharded fold", mesh=mesh1.shape, canvas=out.shape,
+        launches=launches_f, call_ms=round(wall, 3),
+        peak_mem_mib=round(peak, 1))
+    del out
+
+    # (d) the card repeated: chain on data 3, the fold on hyp 4
+    mesh3 = shard.make_mesh(3, 1, devices=[card] * 3)
+    out, lines, launches_3, wall = run_mode(
+        torch, mods, {**chain_want, "K1b": 3, "K4bb": 3},
+        "sharded chain data 3", lambda: sharded("chain", mesh3))
+    check(np.array_equal(out, chain_ref),
+          "sharded chain on data 3: the panorama differs from phase 9's")
+    log("sharded chain data 3", equal_to_phase9=True, launches=launches_3,
+        call_ms=round(wall, 3))
+    mesh_h = shard.make_mesh(1, 4, devices=[card] * 4)
+    hs = []
+    real_composite = pipeline.PairStitcher.composite
+
+    def spy(self, left, right, h):
+        hs.append(np.array(h, np.float64))
+        return real_composite(self, left, right, h)
+
+    pipeline.PairStitcher.composite = spy
+    try:
+        out, lines, launches_h, wall = run_mode(
+            torch, mods, {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1),
+                          "K3": n - 1, "K4a": n - 1},
+            "sharded fold hyp 4", lambda: sharded("fold", mesh_h))
+    finally:
+        pipeline.PairStitcher.composite = real_composite
+    check_lines(lines, [x for step in steps for x in (step, *fold_stages)]
+                + [total], "sharded fold hyp 4")
+    corners = np.array([[0, 0], [W_IMG, 0], [W_IMG, H_IMG], [0, H_IMG]],
+                       np.float64)
+    h_err = []
+    for h, (x, y) in zip(hs, STRIP[1:]):
+        c = np.c_[corners, np.ones(4)] @ h.T
+        h_err.append(float(np.abs(c[:, :2] / c[:, 2:3]
+                                  - (corners + [x, y])).max()))
+    check(len(hs) == n - 1 and max(h_err) < 0.5,
+          f"sharded fold hyp 4: H corner errors {h_err}")
+    log("sharded fold hyp 4", corner_err_px=[round(e, 5) for e in h_err],
+        canvas=out.shape, launches=launches_h, call_ms=round(wall, 3))
+    del out
+
+    # (e) throughput mode: four same-shape pairs
+    left, right = pair
+    lefts = torch.stack([strip[0], strip[1], strip[2], left])
+    rights = torch.stack([strip[1], strip[2], strip[3], right])
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device=DEVICE)
+    rows, _ = shard.fused_estimate_batched(lefts, rights, DEFAULT_CONFIG)
+    singles = [st._fused_estimate_impl(lefts[k], rights[k])[0]
+               for k in range(4)]
+    for k in range(4):
+        check(torch.equal(rows[k], singles[k]),
+              f"batched pairs: pair {k}'s estimate row differs from "
+              f"PairStitcher._fused_estimate_impl's")
+    for mod, attr in mods.values():
+        setattr(mod, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    panos = shard.stitch_pairs_batched(lefts, rights, DEFAULT_CONFIG)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    launches_p = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+    groups = launches_p["K4bb"]
+    check(launches_p == {**none, "K1b": 1, "K2": 8, "K3": 4, "K4bb": groups,
+                         "K5": 4} and 1 <= groups <= 4,
+          f"batched pairs: kernel launches {launches_p}")
+    hs = [r[:9].cpu().numpy().astype(np.float64).reshape(3, 3)
+          for r in singles]
+    for k in range(4):
+        want = st.composite(lefts[k], rights[k], hs[k])
+        check(panos[k] is not None
+              and torch.equal(torch.from_numpy(panos[k]), want.cpu()),
+              f"batched pairs: canvas {k} differs from PairStitcher."
+              f"composite")
+
+    def one_by_one():
+        outs = []
+        for k in range(4):
+            row = pipeline._host_fetch(
+                st._fused_estimate_impl(lefts[k], rights[k])[0])
+            outs.append(pipeline._host_fetch(st.composite(
+                lefts[k], rights[k],
+                row[:9].astype(np.float64).reshape(3, 3))))
+        return outs
+
+    walls = {"one_by_one": [], "batched": []}
+    for tag in ("one_by_one", "batched", "batched", "one_by_one"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = (one_by_one() if tag == "one_by_one" else
+                shard.stitch_pairs_batched(lefts, rights, DEFAULT_CONFIG))
+        walls[tag].append((time.perf_counter() - t0) * 1e3)
+        check(all(np.array_equal(a, b) for a, b in zip(outs, panos)),
+              f"batched pairs: {tag} differs")
+    log("batched pairs", canvases=[p.shape for p in panos],
+        launches=launches_p, first_call_ms=round(first, 3),
+        call_ms_in_turns={k: [round(x, 3) for x in v]
+                          for k, v in walls.items()},
+        peak_mem_mib=round(peak, 1), card=f"'{smi}'")
+    del lefts, rights, panos, outs
+
+    # (f) the sharded CLI in a child process
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        paths = [os.path.join(d, f"strip{i}.ppm") for i in range(n)]
+        for path, img in zip(paths, strip_np):
+            check(tio.imwrite_bgr(path, img), f"sharded cli: writing {path}")
+        out_file = os.path.join(d, "chain.ppm")
+        proc, wall = run_cli(["sharded", "--mode", "chain", "--out",
+                              out_file, *paths])
+        check_cli_lines(proc, [
+            *steps, total, f"Stitched result saved to {out_file}", "",
+            "Total Execution Time (Sharded): x.xxx ms"],
+            torch.cuda.device_count(), "sharded cli")
+        check(np.array_equal(tio.imread_bgr(out_file), chain_ref),
+              "sharded cli: the panorama differs from phase 9's")
+    log("sharded cli", process_wall_ms=round(wall, 3), equal_to_phase9=True,
+        total_execution=proc.stdout.strip().splitlines()[-1])
+    return launches_c
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1220,8 +1548,10 @@ def main() -> None:
             "K3": (cuda_match, "launches"), "K4a": (cuda_warp, "launches"),
             "K4b": (cuda_warp, "packed_launches"),
             "K5": (cuda_compose, "launches"),
-            "K6": (cuda_compose, "chain_launches")}
-    none = dict.fromkeys(KERNELS, 0)
+            "K6": (cuda_compose, "chain_launches"),
+            "K1b": (cuda_harris, "batched_launches"),
+            "K4bb": (cuda_warp, "batched_packed_launches")}
+    none = dict.fromkeys(mods, 0)
     front = {**none, "K1": 2, "K2": 2, "K3": 1}
 
     def stitch_config(blend, gain=False):
@@ -1439,7 +1769,7 @@ def main() -> None:
     log("auto", order=AUTO_ORDER, canvas=out.shape,
         corner_err_px=corner_err, scene=stats, launches=launches_a,
         call_ms=round(wall, 3), card=f"'{smi}'")
-    del out
+    auto_ref = out  # phase 13's sharded auto must give these bytes
 
     # 11. fold, the single-sync pair per step, overlay
     out, lines, launches_fold, wall = run_mode(
@@ -1460,20 +1790,25 @@ def main() -> None:
     # 12. the CLI and serve, on files, in child processes and in process
     cli_phase(torch, mods, strip, strip_np, (left_np, right_np), chain_ref,
               chain_launches, launches_f)
-    del chain_ref
-    # 13. the record lines
+    # 13. the batched entries and the sharded paths
+    launches_s = shard_phase(torch, mods, none, timer, res, smi, strip,
+                             strip_np, (left, right), chain_ref, auto_ref)
+    del chain_ref, auto_ref
+    # 14. the record lines
     all_launches = {**launches, "K4b": launches_f["K4b"],
-                    "K5": launches_f["K5"], "K6": chain_launches["K6"]}
+                    "K5": launches_f["K5"], "K6": chain_launches["K6"],
+                    "K1b": launches_s["K1b"], "K4bb": launches_s["K4bb"]}
+    names = {**KERNELS, **BATCHED}
     print(smi)
     print(json.dumps({"kernels": [
-        {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
-         "replaces": KERNELS[k][2], "launches": all_launches[k],
+        {"name": names[k][0], "route": "cuda", "source": names[k][1],
+         "replaces": names[k][2], "launches": all_launches[k],
          "max_abs_err": res[k]["max_abs_err"], "ms": res[k]["ms"],
          "device_ms": res[k]["device_ms"],
          "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
          "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"],
          **{f: res[k][f] for f in EXTRA_DEVICE_MS if f in res[k]}}
-        for k in KERNELS
+        for k in names
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -49,9 +49,10 @@ _L = ctypes.c_longlong
 
 # C entry points: name -> argtypes (restype is always int).
 SIGNATURES = {
-    # img, out, R plane scratch, h, w, nms window, k, thresh, g0, g1, g2,
-    # stream
-    "pano_harris_scores": [_V, _V, _V, _I, _I, _I, _F, _F, _F, _F, _F, _V],
+    # img, out, R plane scratch, b, h, w, nms window, k, thresh, g0, g1,
+    # g2, stream
+    "pano_harris_scores": [_V, _V, _V, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                           _V],
     # img, xy, kp_valid, desc, border_valid, h, w, k, p, d_pad, stream
     "pano_gather_patches": [_V] * 5 + [_I] * 5 + [_V],
     # q, t, vq, vt, best, idx, second, col_best, scratch, scratch_bytes,
@@ -65,9 +66,10 @@ SIGNATURES = {
     "pano_warp_compose_overlay": (
         [_V, _V, _V] + [_I] * 12 + [_F] * 9 + [_V]
     ),
-    # right, rgb, weight, alpha table, hr, wr, wy0, wx0, win_h, win_w,
-    # has_alpha, emit_weight, m00..m22, stream
-    "pano_warp_packed": [_V] * 4 + [_I] * 8 + [_F] * 9 + [_V],
+    # element table (host), n_elems, rgb, weight, alpha table, hr, wr,
+    # has_alpha, emit_weight, launches out, stream
+    "pano_warp_packed": [_V, _I, _V, _V, _V, _I, _I, _I, _I,
+                         ctypes.POINTER(_I), _V],
     # left, win_rgb, w_win, ramp table, out, hl, wl, out_h, out_w, ty, tx,
     # wy0, wx0, wy1, wx1, feather, stream
     "pano_compose_canvas": [_V] * 5 + [_I] * 11 + [_V],

@@ -15,7 +15,12 @@ module dispatches on the implementation name:
   gpu     — one CUDA device, the hand-written kernels (alias 'tpu', so
             that scripts written for the JAX package keep working); with
             no CUDA device it fails, it never runs on the CPU instead
-  sharded — the multi-device path (alias 'openmp'): not ported yet
+  sharded — the batched and multi-device path (alias 'openmp';
+            parallel/shard.py): chain and auto batch their estimates and
+            warps over a mesh of every CUDA device, fold is the staged
+            fold on the first one (the library's fold splits RANSAC's
+            hypotheses over a mesh it is given); with no CUDA device it
+            fails, like gpu
   opencv  — cv::Stitcher quality baseline (src/opencv/main.cpp:37-95)
 
 PANO_TPU_FORCE_CPU=1 (pano.sh's --no-gpu) runs any impl on the CPU.
@@ -329,17 +334,13 @@ def run(
                 stitch=dataclasses.replace(config.stitch, **stitch_over)
             )
 
-    if impl == "sharded":
-        print("The sharded (openmp) implementation is not ported to "
-              "pano_tpu_torch yet (ROADMAP A11b); use gpu or serial.",
-              file=sys.stderr)
-        return -1
     # Where the stitch runs: the caller asks for the CPU with serial or
-    # PANO_TPU_FORCE_CPU; gpu needs a CUDA device and fails without one.
+    # PANO_TPU_FORCE_CPU; gpu and sharded need a CUDA device and fail
+    # without one.
     device = torch.device("cpu")
-    if impl == "gpu" and not force_cpu:
+    if impl in ("gpu", "sharded") and not force_cpu:
         if not torch.cuda.is_available():
-            print("Error: the gpu implementation needs a CUDA device and "
+            print(f"Error: the {impl} implementation needs a CUDA device and "
                   "PyTorch found none (use serial, or PANO_TPU_FORCE_CPU=1, "
                   "to run on the CPU).", file=sys.stderr)
             return -1
@@ -365,10 +366,30 @@ def run(
         panorama = _opencv_stitch(reader.images)
         tag = "OpenCV"
     else:
-        from pano_tpu_torch.pipeline import stitch_all_images
+        if impl == "sharded":
+            from pano_tpu_torch.parallel import shard
 
-        if impl == "gpu":
-            tag = "GPU" if device.type == "cuda" else ""
+            # The CPU, when asked for, is a mesh of one CPU device; on
+            # the card each mode makes its mesh of every CUDA device.
+            mesh = (shard.make_mesh(devices=[device])
+                    if device.type == "cpu" else None)
+            tag = "Sharded"
+
+            def stitch():
+                return shard.stitch_all_images_sharded(
+                    reader.images, config, timing_tag=tag, mesh=mesh,
+                    mode=mode, anchor=anchor)
+        else:
+            from pano_tpu_torch.pipeline import stitch_all_images
+
+            if impl == "gpu":
+                tag = "GPU" if device.type == "cuda" else ""
+
+            def stitch():
+                return stitch_all_images(
+                    reader.images, config, timing_tag=tag, device=device,
+                    mode=mode, timing=timing, anchor=anchor)
+        if impl in ("gpu", "sharded"):
             n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
             print(f"PyTorch backend: {device.type}", flush=True)
             print(f"Number of Available Devices: {n_dev}", flush=True)
@@ -376,16 +397,10 @@ def run(
             # Same code path as the timed run; benchmark parsers take the
             # LAST timing line, so the warmup's lines are harmless — but
             # keep them out of the --json stages list.
-            stitch_all_images(
-                reader.images, config, timing_tag=tag, device=device,
-                mode=mode, timing=timing, anchor=anchor,
-            )
+            stitch()
             reset_stage_records()
         with _maybe_profile():
-            panorama = stitch_all_images(
-                reader.images, config, timing_tag=tag, device=device,
-                mode=mode, timing=timing, anchor=anchor,
-            )
+            panorama = stitch()
 
     if panorama is None:
         print("Panoramic stitching failed!", file=sys.stderr)

@@ -15,6 +15,14 @@
 // index on every device. No packed-pixel plane is emitted: the gather and
 // warp kernels read the u8 image directly.
 //
+// A batch of b same-shape images, (b, h, w, 3) u8 -> (b, ceil(h/2),
+// ceil(w/2)) f32, is one launch with grid.z = b (the TPU kernel's batched
+// grid, _scores_batched): each z-slice offsets the image, the map and
+// the R plane by its element and runs the single-image code unchanged.
+// Every read stays inside its element: rows outside [0, h) read nothing,
+// and the aligned words of a row's bytes hold none of another row's
+// (load_px), so element b's last row never reads element b+1.
+//
 // What bounds it on an H100: one read of the 3-byte pixels (~39 MB at
 // 4156x3117) and one write of the quarter-size f32 map (~13 MB) take
 // ~0.016 ms at 3.35 TB/s; the ~100 f32 operations a pixel of stencil
@@ -115,9 +123,12 @@ __device__ __forceinline__ float byte_f(const uint32_t (&wd)[3], int i) {
 }
 
 // NR = 1..4: the folded map `out`, (ceil(h/2), ceil(w/2)). NR = 0: the
-// (h, w) R plane instead, for harris_nms_fold_kernel.
+// (h, w) R plane instead, for harris_nms_fold_kernel. The default path's
+// NR = 1 is held to 128 registers, 8 blocks an SM: left to itself, ptxas
+// took 148 once the batch offsets came in, and 6 blocks an SM ran 27 %
+// slower.
 template <int NR>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * WARPS, NR == 1 ? 8 : 1)
 harris_scores_kernel(const uint8_t* __restrict__ img, float* __restrict__ out,
                      int h, int w, float k, float thresh, float g0, float g1,
                      float g2) {
@@ -126,6 +137,10 @@ harris_scores_kernel(const uint8_t* __restrict__ img, float* __restrict__ out,
   constexpr int NROWS = NR > 0 ? 2 * NR : 1;  // R rows kept for the NMS
   const int lane = threadIdx.x & 31;
   const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
+  // This z-slice's element of the batch.
+  img += static_cast<size_t>(blockIdx.z) * h * w * 3;
+  out += static_cast<size_t>(blockIdx.z) *
+         (NR > 0 ? static_cast<size_t>(h2) * w2 : static_cast<size_t>(h) * w);
   const int y0 = (blockIdx.y * WARPS + (threadIdx.x >> 5)) * STRIP_H;
   if (y0 >= 2 * h2) return;  // the whole warp
   const int y_end = min(y0 + STRIP_H, 2 * h2);  // output rows [y0, y_end)
@@ -319,6 +334,11 @@ harris_scores_kernel(const uint8_t* __restrict__ img, float* __restrict__ out,
 // over the R plane, one thread per output block. A candidate (inside
 // the [r, dim-r) border, R > thresh) is a peak when it exceeds every
 // other R of its window; the loop stops at the first that it does not.
+// Element z's rows are rows z * h.. of the (b * h, w) R plane and z * h2..
+// of the (b * h2, w2) map: the batch offset rides in the row index. (As
+// offset pointers, resp and out stayed in registers through the loop
+// where the parameters are read from the constant bank: 33 registers
+// against 27, 6 blocks of 256 an SM against 8.)
 constexpr int NMS_BX = 32, NMS_BY = 8;
 
 __global__ void __launch_bounds__(NMS_BX* NMS_BY)
@@ -328,15 +348,16 @@ harris_nms_fold_kernel(const float* __restrict__ resp, float* __restrict__ out,
   const int by = blockIdx.y * NMS_BY + threadIdx.y;
   const int h2 = (h + 1) / 2, w2 = (w + 1) / 2;
   if (bx >= w2 || by >= h2) return;
+  const int z_row = static_cast<int>(blockIdx.z) * h;
   float best = -__int_as_float(0x7f800000);
   for (int o = 0; o < 4; ++o) {
     const int y = 2 * by + (o >> 1), x = 2 * bx + (o & 1);
     if (y < r || y > h - 1 - r || x < r || x > w - 1 - r) continue;
-    const float ctr = __ldg(resp + static_cast<size_t>(y) * w + x);
+    const float ctr = __ldg(resp + static_cast<size_t>(z_row + y) * w + x);
     if (!(ctr > thresh)) continue;
     bool peak = true;
     for (int dy = -r; dy <= r && peak; ++dy) {
-      const float* row = resp + static_cast<size_t>(y + dy) * w + x;
+      const float* row = resp + static_cast<size_t>(z_row + y + dy) * w + x;
       for (int dx = -r; dx <= r; ++dx) {
         if (dy == 0 && dx == 0) continue;
         if (!(ctr > __ldg(row + dx))) {
@@ -348,45 +369,52 @@ harris_nms_fold_kernel(const float* __restrict__ resp, float* __restrict__ out,
     if (peak)
       best = fmaxf(best, __int_as_float((__float_as_int(ctr) & ~3) | o));
   }
-  out[static_cast<size_t>(by) * w2 + bx] = best;
+  out[static_cast<size_t>(static_cast<int>(blockIdx.z) * h2 + by) * w2 + bx] =
+      best;
 }
 
 template <int NR>
-void launch_scores(const uint8_t* img, float* out, int h, int w, float k,
-                   float thresh, float g0, float g1, float g2,
+void launch_scores(const uint8_t* img, float* out, int b, int h, int w,
+                   float k, float thresh, float g0, float g1, float g2,
                    cudaStream_t stream) {
   const int strips = static_cast<int>(pano_cdiv(2 * ((h + 1) / 2), STRIP_H));
   const dim3 grid(pano_cdiv(2 * ((w + 1) / 2), Halo<NR>::OUT_W),
-                  pano_cdiv(strips, WARPS));
+                  pano_cdiv(strips, WARPS), b);
   harris_scores_kernel<NR><<<grid, 32 * WARPS, 0, stream>>>(
       img, out, h, w, k, thresh, g0, g1, g2);
 }
 
 }  // namespace
 
-// `nms`: the odd NMS window n >= 3. Above 9, `resp` is an (h, w) f32
-// scratch plane for R; below, it is not read.
-PANO_API int pano_harris_scores(const void* img, void* out, void* resp, int h,
-                                int w, int nms, float k, float thresh,
+// `img`: b contiguous (h, w, 3) u8 images; `out`: b (ceil(h/2),
+// ceil(w/2)) f32 maps. `nms`: the odd NMS window n >= 3. Above 9, `resp`
+// is a (b, h, w) f32 scratch for R; below, it is not read.
+PANO_API int pano_harris_scores(const void* img, void* out, void* resp, int b,
+                                int h, int w, int nms, float k, float thresh,
                                 float g0, float g1, float g2, void* stream) {
   const int r = nms / 2;
-  if (nms < 3 || nms % 2 == 0 || (r > MAX_NR && resp == nullptr))
+  if (nms < 3 || nms % 2 == 0 || (r > MAX_NR && resp == nullptr) || b < 1 ||
+      b > 65535 || static_cast<long long>(b) * h > 0x7fffffffLL)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* src = static_cast<const uint8_t*>(img);
   auto* dst = static_cast<float*>(out);
   const auto s = static_cast<cudaStream_t>(stream);
   switch (r) {
-    case 1: launch_scores<1>(src, dst, h, w, k, thresh, g0, g1, g2, s); break;
-    case 2: launch_scores<2>(src, dst, h, w, k, thresh, g0, g1, g2, s); break;
-    case 3: launch_scores<3>(src, dst, h, w, k, thresh, g0, g1, g2, s); break;
-    case 4: launch_scores<4>(src, dst, h, w, k, thresh, g0, g1, g2, s); break;
+    case 1: launch_scores<1>(src, dst, b, h, w, k, thresh, g0, g1, g2, s);
+      break;
+    case 2: launch_scores<2>(src, dst, b, h, w, k, thresh, g0, g1, g2, s);
+      break;
+    case 3: launch_scores<3>(src, dst, b, h, w, k, thresh, g0, g1, g2, s);
+      break;
+    case 4: launch_scores<4>(src, dst, b, h, w, k, thresh, g0, g1, g2, s);
+      break;
     default: {
       auto* plane = static_cast<float*>(resp);
-      launch_scores<0>(src, plane, h, w, k, thresh, g0, g1, g2, s);
+      launch_scores<0>(src, plane, b, h, w, k, thresh, g0, g1, g2, s);
       const int err = static_cast<int>(cudaGetLastError());
       if (err != 0) return err;
       const dim3 grid(pano_cdiv((w + 1) / 2, NMS_BX),
-                      pano_cdiv((h + 1) / 2, NMS_BY));
+                      pano_cdiv((h + 1) / 2, NMS_BY), b);
       harris_nms_fold_kernel<<<grid, dim3(NMS_BX, NMS_BY), 0, s>>>(
           plane, dst, h, w, r, thresh);
     }

@@ -12,7 +12,10 @@
 // u8; a warped pixel with any non-zero channel replaces the base.
 //
 // K4b replaces pano_tpu/ops/pallas_warp.py::warp_packed (the pallas_call
-// in _warp_batched_call). Each pixel of a (win_h, win_w) window at canvas
+// in _warp_batched_call). A launch warps a group of images that share one
+// source shape, each into its own window (the TPU kernel's (B, tiles_y,
+// tiles_x) grid; one image is a group of one): see warp_packed_kernel.
+// Each pixel of a (win_h, win_w) window at canvas
 // origin (wy0, wx0) takes the same sample and writes it as 3 u8 channels,
 // plus an f32 weight: with has_alpha, the same bilinear sample of the
 // alpha plane clip(rint(_edge_ramp(hr, wr) * 127), 1, 127), whose value at
@@ -80,6 +83,8 @@ namespace {
 // sum in tap order, rint and the clip, rint(asum) / 127.
 constexpr int PACKED_THREADS = 256;
 constexpr int PACKED_RUNS = 8;  // runs of 32 pixels per warp
+// Window pixels a K4b block covers.
+constexpr int PACKED_BLOCK_PX = 32 * PACKED_RUNS * (PACKED_THREADS / 32);
 static_assert(PACKED_THREADS == CANVAS_THREADS,
               "K4a's stream blocks stride by CANVAS_THREADS");
 
@@ -190,15 +195,16 @@ __device__ __forceinline__ void sample_px(
   }
 }
 
-__global__ void __launch_bounds__(PACKED_THREADS)
-warp_packed_kernel(const uint8_t* __restrict__ right,
-                   uint8_t* __restrict__ rgb, float* __restrict__ weight,
-                   const float* __restrict__ table, int hr, int wr,
-                   float fhr, float fwr, int wy0, int wx0, int win_w,
-                   unsigned total, int has_alpha, const Map m) {
+// Block `block` of a K4b window: PACKED_THREADS / 32 warps, each
+// PACKED_RUNS runs of 32 pixels of the flat window.
+__device__ __forceinline__ void warp_window_block(
+    const uint8_t* __restrict__ right, uint8_t* __restrict__ rgb,
+    float* __restrict__ weight, const float* __restrict__ table, int hr,
+    int wr, float fhr, float fwr, int wy0, int wx0, int win_w, unsigned total,
+    int has_alpha, const Map& m, unsigned block) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned warp_base =
-      (blockIdx.x * (PACKED_THREADS / 32) + (threadIdx.x >> 5)) *
+      (block * (PACKED_THREADS / 32) + (threadIdx.x >> 5)) *
       (32 * PACKED_RUNS);
   if (warp_base >= total) return;  // the whole warp
   unsigned o = warp_base + lane;
@@ -232,6 +238,62 @@ warp_packed_kernel(const uint8_t* __restrict__ right,
       r2 = m.m21 * ys;
     }
   }
+}
+
+// One element of a K4b launch, as ops/cuda_warp.py packs it (80 bytes,
+// no padding): its source image, where its window starts in the flat RGB
+// buffer (bytes) and in the flat weight buffer (floats), its map in
+// _m_floats' order, its window, and its first block (set by the C entry).
+struct WarpElem {
+  const uint8_t* src;
+  long long rgb_off;
+  long long w_off;
+  float m[9];
+  int wy0, wx0, win_h, win_w;
+  unsigned block_start;
+};
+static_assert(sizeof(WarpElem) == 80, "ops/cuda_warp.py packs 80 bytes");
+
+// A launch's elements, passed by value as a kernel parameter, in the
+// parameter space every block reads through the constant cache (no device
+// table, so no upload before the launch). 16 of them are 1280 bytes,
+// inside the classic 4 KB parameter limit; a larger group takes a launch
+// for each 16 elements.
+constexpr int BATCH_CAP = 16;
+struct WarpBatch {
+  WarpElem e[BATCH_CAP];
+};
+
+// K4b: images of one source shape (hr, wr), each warped into its own
+// window (one image is a batch of one). The blocks are spread over the
+// elements by their block starts (each element gets ceil(win_h * win_w /
+// PACKED_BLOCK_PX) blocks in turn); a block finds its element by a binary
+// search over them, then samples its PACKED_THREADS / 32 warps' runs of
+// the flat window. The map's row terms stay hoisted. Indices inside an
+// element are 32-bit; the element offsets into the flat buffers are
+// 64-bit (a throughput batch's windows pass 2^32 bytes).
+__global__ void __launch_bounds__(PACKED_THREADS)
+warp_packed_kernel(const __grid_constant__ WarpBatch batch, int n_elems,
+                   uint8_t* __restrict__ rgb, float* __restrict__ weight,
+                   const float* __restrict__ table, int hr, int wr,
+                   float fhr, float fwr, int has_alpha) {
+  int lo = 0, hi = n_elems - 1;  // the last element starting <= blockIdx.x
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (batch.e[mid].block_start <= blockIdx.x)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  const WarpElem& e = batch.e[lo];
+  const Map m{e.m[0], e.m[1], e.m[2], e.m[3], e.m[4],
+              e.m[5], e.m[6], e.m[7], e.m[8]};
+  warp_window_block(e.src, rgb + e.rgb_off,
+                    weight != nullptr ? weight + e.w_off : nullptr, table, hr,
+                    wr, fhr, fwr, e.wy0, e.wx0, e.win_w,
+                    static_cast<unsigned>(e.win_h) *
+                        static_cast<unsigned>(e.win_w),
+                    has_alpha, m, blockIdx.x - e.block_start);
 }
 
 // K4a: the canvas by the two kinds of block of canvas.cuh. A window block
@@ -338,30 +400,55 @@ PANO_API int pano_warp_compose_overlay(
   return static_cast<int>(cudaGetLastError());
 }
 
-// `table`: the ramp alpha table g(0..ceil(max(hr, wr) / 2)) when has_alpha
-// and emit_weight (ops/cuda_warp.py::ramp_alpha_table).
-PANO_API int pano_warp_packed(const void* right, void* rgb, void* weight,
-                              const void* table, int hr, int wr, int wy0,
-                              int wx0, int win_h, int win_w, int has_alpha,
-                              int emit_weight, float m00, float m01,
-                              float m02, float m10, float m11, float m12,
-                              float m20, float m21, float m22, void* stream) {
+// K4b (warp_packed_kernel): `elems`, a HOST array of n_elems WarpElem
+// rows (block_start is set here); `rgb` and `weight` the flat buffers the
+// elements' offsets point into (weight null: no weight); `table` the ramp
+// alpha table g(0..ceil(max(hr, wr) / 2)) of the shared source shape when
+// has_alpha and emit_weight (ops/cuda_warp.py::ramp_alpha_table). One
+// launch for each BATCH_CAP elements that have a pixel; their number goes
+// to *launches. Refuses a window past the single window's limits: 32-bit
+// indices inside it and canvas coordinates <= 2^23 (sample_fits).
+PANO_API int pano_warp_packed(const void* elems, int n_elems, void* rgb,
+                              void* weight, const void* table, int hr,
+                              int wr, int has_alpha, int emit_weight,
+                              int* launches, void* stream) {
+  *launches = 0;
   has_alpha = has_alpha && emit_weight;  // the alpha feeds the weight only
-  const long long total = static_cast<long long>(win_h) * win_w;
-  if ((has_alpha && table == nullptr) || total * 3 > 0xffffffffLL ||
-      !sample_fits(hr, wr, wy0 + win_h, wx0 + win_w))
+  if (n_elems < 1 || (has_alpha && table == nullptr) ||
+      !sample_fits(hr, wr, 0, 0))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (total <= 0) return 0;
-  const long long per_block = 32LL * PACKED_RUNS * (PACKED_THREADS / 32);
-  const unsigned blocks =
-      static_cast<unsigned>((total + per_block - 1) / per_block);
-  warp_packed_kernel<<<blocks, PACKED_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(right), static_cast<uint8_t*>(rgb),
-      emit_weight ? static_cast<float*>(weight) : nullptr,
-      static_cast<const float*>(table), hr, wr, static_cast<float>(hr),
-      static_cast<float>(wr), wy0, wx0, win_w,
-      static_cast<unsigned>(total), has_alpha,
-      Map{m00, m01, m02, m10, m11, m12, m20, m21, m22});
-  return static_cast<int>(cudaGetLastError());
+  const auto* all = static_cast<const WarpElem*>(elems);
+  for (int i = 0; i < n_elems; ++i) {
+    const WarpElem& e = all[i];
+    if (e.wy0 < 0 || e.wx0 < 0 || e.win_h < 0 || e.win_w < 0 ||
+        static_cast<long long>(e.win_h) * e.win_w * 3 > 0xffffffffLL ||
+        !sample_fits(hr, wr, static_cast<long long>(e.wy0) + e.win_h,
+                     static_cast<long long>(e.wx0) + e.win_w))
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto* out = static_cast<uint8_t*>(rgb);
+  auto* w = emit_weight ? static_cast<float*>(weight) : nullptr;
+  const auto* tab = static_cast<const float*>(table);
+  const auto s = static_cast<cudaStream_t>(stream);
+  for (int i0 = 0; i0 < n_elems; i0 += BATCH_CAP) {
+    WarpBatch b;
+    const int n = n_elems - i0 < BATCH_CAP ? n_elems - i0 : BATCH_CAP;
+    unsigned blocks = 0;
+    for (int i = 0; i < n; ++i) {
+      b.e[i] = all[i0 + i];
+      b.e[i].block_start = blocks;
+      const long long px = static_cast<long long>(b.e[i].win_h) *
+                           b.e[i].win_w;
+      blocks += static_cast<unsigned>((px + PACKED_BLOCK_PX - 1) /
+                                      PACKED_BLOCK_PX);
+    }
+    if (blocks == 0) continue;  // empty windows only
+    warp_packed_kernel<<<blocks, PACKED_THREADS, 0, s>>>(
+        b, n, out, w, tab, hr, wr, static_cast<float>(hr),
+        static_cast<float>(wr), has_alpha);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    ++*launches;
+  }
+  return 0;
 }

@@ -21,6 +21,13 @@ in-bounds bilinear weight. Its plain version is ``_inverse_map`` +
 reads the plane's values from ``ramp_alpha_table``, built once per source
 shape and device.
 
+``warp_packed_batched`` is K4b's batched entry (the TPU kernel's
+``_warp_batched_call``): a group of images that share one source shape,
+each warped into its own window, in one launch for each 16 windows;
+``warp_packed`` is the same launch with one window, so every output is
+bit for bit the single window's. Its plain version is a loop of
+``warp_packed_plain``.
+
 What bounds the kernels on an H100 is noted at the top of
 ``csrc/warp.cu``. Each wrapper takes its plain version for tensors on the
 CPU and launches its kernel for CUDA tensors; any other device raises.
@@ -28,8 +35,10 @@ CPU and launches its kernel for CUDA tensors; any other device raises.
 
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Tuple
+import struct
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -37,8 +46,16 @@ from pano_tpu_torch import _build
 from pano_tpu_torch.ops import warp as warp_ops
 
 # Kernel launches since the last reset (chip_smoke.py reads them).
-launches = 0         # K4a, warp_compose_overlay
-packed_launches = 0  # K4b, warp_packed
+launches = 0                 # K4a, warp_compose_overlay
+packed_launches = 0          # K4b, warp_packed
+batched_packed_launches = 0  # K4b, warp_packed_batched
+
+# One element of a K4b launch (csrc/warp.cu WarpElem): source pointer,
+# offsets into the flat RGB (bytes) and weight (floats) buffers, the 9 map
+# floats, the window's origin and size, and its first block (set by the C
+# entry).
+_ELEM = struct.Struct("<Qqq9f4iI")
+assert _ELEM.size == 80
 
 Window = Tuple[int, int, int, int]  # (wy0, wx0, wy1, wx1), end-exclusive
 
@@ -155,41 +172,107 @@ def _alpha_table(h: int, w: int, device: torch.device) -> torch.Tensor:
     return ramp_alpha_table(h, w, device)
 
 
+def _check_packed_window(fn: str, window) -> Window:
+    wy0, wx0, wy1, wx1 = window = tuple(map(int, window))
+    if not (0 <= wy0 <= wy1 and 0 <= wx0 <= wx1):
+        raise ValueError(f"{fn}: bad window {window}")
+    return window
+
+
+def _launch_packed(fn, srcs, m_invs, windows, has_alpha, emit_weight):
+    """K4b over same-shape contiguous CUDA sources, each into its own
+    window: one launch for each 16 windows. Returns ((rgb, weight) per
+    window, views into one flat RGB and one flat weight buffer, and the
+    number of launches)."""
+    if not all(s.is_contiguous() for s in srcs):
+        raise ValueError(f"{fn}: sources must be contiguous")
+    dev = srcs[0].device
+    hr, wr = srcs[0].shape[:2]
+    dims = [(wy1 - wy0, wx1 - wx0) for wy0, wx0, wy1, wx1 in windows]
+    starts = [0]
+    for h, w in dims:
+        starts.append(starts[-1] + h * w)
+    elems = b"".join(
+        _ELEM.pack(s.data_ptr(), a * 3, a, *warp_ops._m_floats(m), wy0, wx0,
+                   h, w, 0)
+        for s, m, (wy0, wx0, _, _), (h, w), a in zip(srcs, m_invs, windows,
+                                                     dims, starts))
+    rgb = torch.empty(starts[-1] * 3, dtype=torch.uint8, device=dev)
+    wt = (torch.empty(starts[-1], dtype=torch.float32, device=dev)
+          if emit_weight else None)
+    table = (_alpha_table(hr, wr, dev) if has_alpha and emit_weight
+             else None)
+    n = ctypes.c_int(0)
+    _build.launch(
+        "pano_warp_packed", dev, elems, len(srcs), rgb.data_ptr(),
+        0 if wt is None else wt.data_ptr(),
+        0 if table is None else table.data_ptr(), hr, wr, int(has_alpha),
+        int(emit_weight), ctypes.byref(n),
+    )
+    out = [(rgb[a * 3:b * 3].view(h, w, 3),
+            None if wt is None else wt[a:b].view(h, w))
+           for a, b, (h, w) in zip(starts, starts[1:], dims)]
+    return out, n.value
+
+
 def warp_packed(
     right: torch.Tensor, m_inv, window: Window, has_alpha: bool = True,
     emit_weight: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Warp `right` through the canvas-to-source map ``m_inv`` onto the
     canvas window (wy0, wx0, wy1, wx1): returns ((h, w, 3) u8 RGB, (h, w)
-    f32 weight, or None when not `emit_weight`)."""
+    f32 weight, or None when not `emit_weight`). On the card, K4b's
+    launch with one window."""
     fn = "warp_packed"
     _check_image(fn, "right", right)
-    wy0, wx0, wy1, wx1 = window = tuple(map(int, window))
-    if not (0 <= wy0 <= wy1 and 0 <= wx0 <= wx1):
-        raise ValueError(f"{fn}: bad window {window}")
+    window = _check_packed_window(fn, window)
     _check_device(fn, right.device)
     if right.device.type == "cpu":
         return warp_packed_plain(right, m_inv, window, has_alpha,
                                  emit_weight)
-    if not right.is_contiguous():
-        raise ValueError(f"{fn}: right must be contiguous")
-    win_h, win_w = wy1 - wy0, wx1 - wx0
-    rgb = torch.empty((win_h, win_w, 3), dtype=torch.uint8,
-                      device=right.device)
-    w = (torch.empty((win_h, win_w), dtype=torch.float32,
-                     device=right.device) if emit_weight else None)
-    if win_h == 0 or win_w == 0:
-        return rgb, w
-    hr, wr = right.shape[:2]
-    table = (_alpha_table(hr, wr, right.device)
-             if has_alpha and emit_weight else None)
+    out, n = _launch_packed(fn, [right], [m_inv], [window], has_alpha,
+                            emit_weight)
     global packed_launches
-    _build.launch(
-        "pano_warp_packed", right.device,
-        right.data_ptr(), rgb.data_ptr(), 0 if w is None else w.data_ptr(),
-        0 if table is None else table.data_ptr(),
-        hr, wr, wy0, wx0, win_h, win_w, int(has_alpha), int(emit_weight),
-        *warp_ops._m_floats(m_inv),
-    )
-    packed_launches += 1
-    return rgb, w
+    packed_launches += n
+    return out[0]
+
+
+def warp_packed_batched_plain(
+    srcs: Sequence[torch.Tensor], m_invs, windows: Sequence[Window],
+    has_alpha: bool = True, emit_weight: bool = True,
+) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The plain version of the batched launch: warp_packed_plain of each
+    (source, map, window)."""
+    return [warp_packed_plain(s, m, w, has_alpha, emit_weight)
+            for s, m, w in zip(srcs, m_invs, windows)]
+
+
+def warp_packed_batched(
+    srcs: Sequence[torch.Tensor], m_invs, windows: Sequence[Window],
+    has_alpha: bool = True, emit_weight: bool = True,
+) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """warp_packed of each (source, map, window), one K4b launch for each
+    16 of them: the sources share one shape (hr, wr, 3) and one device;
+    each window has its own origin and size. Returns warp_packed's (rgb,
+    weight) per element, views into one flat RGB and one flat weight
+    buffer."""
+    fn = "warp_packed_batched"
+    srcs = list(srcs)
+    windows = [_check_packed_window(fn, w) for w in windows]
+    if not (len(srcs) == len(windows) == len(m_invs)) or not srcs:
+        raise ValueError(f"{fn}: want as many sources, maps and windows, "
+                         f"at least one")
+    for s in srcs:
+        _check_image(fn, "source", s)
+    dev = srcs[0].device
+    if any(s.device != dev or s.shape != srcs[0].shape for s in srcs):
+        raise ValueError(f"{fn}: sources of different shapes or devices")
+    _check_device(fn, dev)
+    if dev.type == "cpu":
+        return warp_packed_batched_plain(srcs, m_invs, windows, has_alpha,
+                                         emit_weight)
+    out, n = _launch_packed(fn, srcs, m_invs, windows, has_alpha,
+                            emit_weight)
+    global batched_packed_launches
+    batched_packed_launches += n
+    return out

@@ -12,7 +12,7 @@ Top-K is an exact, stable sort: ties come out lowest flat index first, as
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -120,6 +120,24 @@ def harris_detect(img_u8: torch.Tensor, opts: HarrisOptions) -> KeyPoints:
 
     bmax = cuda_harris.harris_scores(img_u8, opts.k, opts.nms_thresh,
                                      opts.nms_neighborhood)
+    return _top_keypoints(bmax, opts)
+
+
+def harris_detect_batched(imgs_u8: torch.Tensor,
+                          opts: HarrisOptions) -> List[KeyPoints]:
+    """harris_detect of each image of a (B, H, W, 3) u8 stack of
+    same-shape images: one K1 launch for the stack
+    (``cuda_harris.harris_scores_batched``), then each image's stable
+    top-K from its own map."""
+    from pano_tpu_torch.ops import cuda_harris
+
+    bmax = cuda_harris.harris_scores_batched(
+        imgs_u8, opts.k, opts.nms_thresh, opts.nms_neighborhood)
+    return [_top_keypoints(m, opts) for m in bmax]
+
+
+def _top_keypoints(bmax: torch.Tensor, opts: HarrisOptions) -> KeyPoints:
+    """The top-K decode of one (h2, w2) block-folded score map."""
     h2, w2 = bmax.shape
 
     k_cap = min(opts.max_keypoints, h2 * w2)

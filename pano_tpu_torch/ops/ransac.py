@@ -14,8 +14,10 @@ the JAX package's own draw, ``jax.random.randint(PRNGKey(seed), (N, 4), 0,
 max(n_valid, 1))``, bit for bit: threefry2x32 and ``randint``'s two-word
 reduction in integer torch (``default_sampler``). Its random bits depend
 only on (seed, N, 4), so they are made once per device and kept; each call
-reduces them modulo ``n_valid`` on the device, with no host sync. Tests
-may inject another table through ``sampler=``.
+reduces them modulo ``n_valid`` on the device, with no host sync. The
+hypothesis-sharded search draws each shard's table from
+``fold_in(PRNGKey(seed), shard)`` (``key_sampler``). Tests may inject
+another table through ``sampler=``.
 """
 
 from __future__ import annotations
@@ -242,12 +244,21 @@ def prng_key(seed: int) -> Tuple[int, int]:
     return 0, seed & _M32
 
 
+def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
+    """jax.random.fold_in(key, data) for an int32 `data`: the hash of the
+    counter pair (0, data) under the key."""
+    b0, b1 = _threefry2x32(*key, torch.zeros(1, dtype=torch.int64),
+                           torch.tensor([data & _M32], dtype=torch.int64))
+    return int(b0[0]), int(b1[0])
+
+
 @functools.lru_cache(maxsize=16)
-def randint_bits(seed: int, n: int, s: int, device: torch.device):
-    """The two (n, s) bit planes of jax.random.randint(PRNGKey(seed),
-    (n, s), ...) for an int32 result: random_bits of each half of the
-    split key. They do not depend on the range, so they are kept."""
-    k1, k2 = _split(prng_key(seed))
+def randint_bits_key(key: Tuple[int, int], n: int, s: int,
+                     device: torch.device):
+    """The two (n, s) bit planes of jax.random.randint(key, (n, s), ...)
+    for an int32 result: random_bits of each half of the split key. They
+    do not depend on the range, so they are kept."""
+    k1, k2 = _split(key)
     return tuple(_random_bits32(k, n * s, device).reshape(n, s)
                  for k in (k1, k2))
 
@@ -270,11 +281,20 @@ def default_sampler(
     num_iterations: int, num_samples: int, seed: int, device
 ) -> Sampler:
     """The JAX package's table: jax.random.randint(PRNGKey(seed),
-    (num_iterations, num_samples), 0, max(n_valid, 1)), on `device`. The
-    bit planes are made once per (seed, shape, device); a call reduces
+    (num_iterations, num_samples), 0, max(n_valid, 1)), on `device`."""
+    return key_sampler(prng_key(seed), num_iterations, num_samples, device)
+
+
+def key_sampler(
+    key: Tuple[int, int], num_iterations: int, num_samples: int, device
+) -> Sampler:
+    """jax.random.randint(key, (num_iterations, num_samples), 0,
+    max(n_valid, 1)) on `device`, for a key given as its two words (the
+    hypothesis-sharded search draws from fold_in(PRNGKey(seed), shard)).
+    The bit planes are made once per (key, shape, device); a call reduces
     them by the device tensor n_valid, with no host sync."""
-    higher, lower = randint_bits(seed, num_iterations, num_samples,
-                                 torch.device(device))
+    higher, lower = randint_bits_key(tuple(key), num_iterations,
+                                     num_samples, torch.device(device))
 
     def sample(n_valid: torch.Tensor) -> torch.Tensor:
         span = torch.clamp(n_valid.to(device=higher.device,

@@ -202,31 +202,11 @@ class PairStitcher:
     def _fused_estimate_impl(self, left: torch.Tensor, right: torch.Tensor):
         """detect x2 -> match -> RANSAC, no host sync. Returns (row (14,)
         f32 on the device, (pts_q, pts_t, valid))."""
-        h_opts, r_opts = self.config.harris, self.config.ransac
+        h_opts = self.config.harris
         kps_l = harris_ops.harris_detect(left, h_opts)
         kps_r = harris_ops.harris_detect(right, h_opts)
-        matches = match_ops.match_keypoints(kps_r, kps_l, right, left, h_opts)
-        pts_q, pts_t, valid = match_ops.gather_match_points(
-            kps_r, kps_l, matches
-        )
-        res = ransac_ops.ransac_homography(
-            pts_q, pts_t, valid, r_opts, sampler=self.sampler
-        )
-        row = torch.cat(
-            [
-                res.H.reshape(-1).float(),
-                torch.stack(
-                    [
-                        res.inlier_count.float(),
-                        res.num_matches.float(),
-                        res.ok.float(),
-                        matches.count().float(),
-                        torch.zeros((), device=res.H.device),
-                    ]
-                ),
-            ]
-        )
-        return row, (pts_q, pts_t, valid)
+        return estimate_row(kps_l, kps_r, left, right, self.config,
+                            self.sampler)
 
     # --- staged stages: each synchronized, and timed with print_timing ----
 
@@ -271,6 +251,15 @@ class PairStitcher:
                 right, m_inv, left, ty, tx, window, out_h, out_w)
         rgb_win, w_win = cuda_warp.warp_packed(
             right, m_inv, window, has_alpha=st.blend != "overlay")
+        return self._compose_window(left, rgb_win, w_win, ty, tx, window,
+                                    out_h, out_w)
+
+    def _compose_window(self, left, rgb_win, w_win, ty, tx, window, out_h,
+                        out_w):
+        """The canvas from the right image's warped window (K4b's output;
+        w_win may be None for overlay without gain): the window context
+        for multiband or gain, then K5."""
+        st = self.config.stitch
         if st.blend == "multiband" or st.gain_compensation:
             rgb_win = self._window_context(left, rgb_win, w_win, ty, tx,
                                            window)
@@ -453,6 +442,35 @@ class PairStitcher:
         return canvas
 
 
+def estimate_row(kps_l, kps_r, left, right, config: PanoConfig,
+                 sampler: Optional[ransac_ops.Sampler] = None):
+    """The fused estimate after detection: match (right as query, left as
+    train), RANSAC, and the (14,) f32 row [H (9), inlier_count,
+    num_matches, ok, match_count, 0] on the device, with no host sync.
+    Returns (row, (pts_q, pts_t, valid))."""
+    matches = match_ops.match_keypoints(kps_r, kps_l, right, left,
+                                        config.harris)
+    pts_q, pts_t, valid = match_ops.gather_match_points(kps_r, kps_l,
+                                                        matches)
+    res = ransac_ops.ransac_homography(pts_q, pts_t, valid, config.ransac,
+                                       sampler=sampler)
+    row = torch.cat(
+        [
+            res.H.reshape(-1).float(),
+            torch.stack(
+                [
+                    res.inlier_count.float(),
+                    res.num_matches.float(),
+                    res.ok.float(),
+                    matches.count().float(),
+                    torch.zeros((), device=res.H.device),
+                ]
+            ),
+        ]
+    )
+    return row, (pts_q, pts_t, valid)
+
+
 # --- multi-image modes -------------------------------------------------------
 
 
@@ -515,6 +533,15 @@ def stitch_all_images(
     fast = timing == "total"
     stitcher = get_pair_stitcher(config, print_timing and not fast,
                                  timing_tag, device, sampler)
+    return fold_images(stitcher, images, fast, print_timing, timing_tag, t)
+
+
+def fold_images(stitcher: PairStitcher, images: List, fast: bool,
+                print_timing: bool, timing_tag: str,
+                t: Timer) -> Optional[np.ndarray]:
+    """The left fold of ``stitch_all_images`` with `stitcher`'s pair
+    stitch (``stitch_pair_fast`` when `fast`, else the staged
+    ``stitch_pair``); `t` times the total line."""
     panorama = stitcher._to_device(images[0])
     n = len(images)
     for i in range(1, n):
@@ -798,22 +825,28 @@ def composite_global(
 
     `_weights_out` (tests only): a list that receives the final weight
     canvas as host numpy."""
-    st = config.stitch
-    warp_ops._check_blend(st.blend)
+    warp_ops._check_blend(config.stitch.blend)
     t_mat, canvas_h, canvas_w = global_canvas_geometry(images, globals_h,
                                                        anchor)
-    dev = devs[anchor].device
-    ty0, tx0 = int(t_mat[1, 2]), int(t_mat[0, 2])
-    canvas = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
-                         device=dev)
-    warp_ops._place(canvas, devs[anchor], ty0, tx0)
-    weight = torch.zeros((canvas_h, canvas_w), dtype=torch.float32,
-                         device=dev)
-    ha, wa = devs[anchor].shape[:2]
-    warp_ops._place(weight, warp_ops._edge_ramp(ha, wa, dev), ty0, tx0)
-    has_alpha = st.blend in ("feather", "multiband")
-    kernel_step = st.blend != "multiband" and not st.gain_compensation
-    for i in range(len(images)):
+    plan = global_warp_plan(devs, globals_h, anchor, t_mat, canvas_h,
+                            canvas_w)
+    has_alpha = config.stitch.blend in ("feather", "multiband")
+
+    def warps():
+        for i, m_inv, window, lvl in plan:
+            yield window, cuda_warp.warp_packed(
+                mip_source(devs[i], lvl), m_inv, window, has_alpha=has_alpha)
+
+    return blend_global(devs[anchor], t_mat, canvas_h, canvas_w, warps(),
+                        config, _weights_out)
+
+
+def global_warp_plan(devs, globals_h, anchor, t_mat, canvas_h, canvas_w):
+    """The warp of each placed image of the global composite, in image
+    order: (i, its canvas-to-source map at its mip level, its exact
+    window (wy0, wx0, wy1, wx1), the level)."""
+    plan = []
+    for i in range(len(devs)):
         if i == anchor or globals_h[i] is None:
             continue
         m = t_mat @ np.asarray(globals_h[i], np.float64)
@@ -824,9 +857,34 @@ def composite_global(
         wy0, wx0, wy1, wx1 = window
         lvl = mip_ops.pick_mip_level(m_inv, wy1 - wy0, wx1 - wx0,
                                      off_x=wx0, off_y=wy0) or 0
-        src = devs[i] if lvl == 0 else warp_ops.downsample_pow2(devs[i], lvl)
-        rgb_win, w_win = cuda_warp.warp_packed(
-            src, mip_ops.mip_m_inv(m_inv, lvl), window, has_alpha=has_alpha)
+        plan.append((i, mip_ops.mip_m_inv(m_inv, lvl), window, lvl))
+    return plan
+
+
+def mip_source(img: torch.Tensor, lvl: int) -> torch.Tensor:
+    """The source a warp at mip level `lvl` samples."""
+    return img if lvl == 0 else warp_ops.downsample_pow2(img, lvl)
+
+
+def blend_global(anchor_img, t_mat, canvas_h, canvas_w, warps, config,
+                 _weights_out=None) -> np.ndarray:
+    """The global composite's canvas from the anchor and the placed
+    images' warped windows, `warps` yielding (window, (rgb, weight)) in
+    image order, each blended against the accumulated weight canvas (see
+    composite_global)."""
+    st = config.stitch
+    dev = anchor_img.device
+    ty0, tx0 = int(t_mat[1, 2]), int(t_mat[0, 2])
+    canvas = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
+                         device=dev)
+    warp_ops._place(canvas, anchor_img, ty0, tx0)
+    weight = torch.zeros((canvas_h, canvas_w), dtype=torch.float32,
+                         device=dev)
+    ha, wa = anchor_img.shape[:2]
+    warp_ops._place(weight, warp_ops._edge_ramp(ha, wa, dev), ty0, tx0)
+    kernel_step = st.blend != "multiband" and not st.gain_compensation
+    for window, (rgb_win, w_win) in warps:
+        wy0, wx0, wy1, wx1 = window
         if kernel_step:
             cuda_compose.compose_chain_canvas(canvas, weight, rgb_win, w_win,
                                               window, st.blend)

@@ -5,9 +5,9 @@ exit codes, the same stdout and stderr lines (times blanked), panoramas
 within tests/test_torch_multi.py's bar, and --json files with the same
 keys, stage names and, on every field both configs have, the same
 config. Each JAX run happens once per module. Then the port's own
-surface: the error paths of tests/test_cli.py, `gpu` without a CUDA
-device (an error, never a CPU run), `sharded` (not ported), the
-profiler hook, and `serve` (decode-ahead, encode-behind, status lines,
+surface: the error paths of tests/test_cli.py, `gpu` and `sharded`
+without a CUDA device (an error, never a CPU run), `sharded` on the CPU
+against the JAX CLI's, the profiler hook, and `serve` (decode-ahead, encode-behind, status lines,
 failed jobs and writes, the staging decoder) on `serial`.
 """
 
@@ -349,13 +349,123 @@ def test_force_cpu_runs_gpu_impl_on_cpu(scene_dir, tmp_path, monkeypatch):
     assert (s["impl"], s["backend"], s["ok"]) == ("gpu", "cpu", True)
 
 
+# case -> (impl, scene, extra args): the sharded impl (and its alias)
+# against the JAX CLI's on its 8 CPU devices; the port runs on the CPU
+# when asked (PANO_TPU_FORCE_CPU), on a mesh of one CPU device.
+SHARDED_CASES = {
+    "sharded": ("sharded", "strip", ["--mode", "chain"]),
+    "openmp": ("openmp", "pair", []),
+    "sharded_auto": ("sharded", "strip", ["--mode", "auto", "--anchor",
+                                          "first"]),
+}
+
+
+@pytest.fixture(scope="module")
+def sharded_runs(scene_dir, strip_dir, tmp_path_factory):
+    """case -> {"jax": ..., "port": ...}, as both_runs."""
+    out_dir = tmp_path_factory.mktemp("torch_cli_sharded")
+    memo = {}
+
+    def get(case):
+        if case not in memo:
+            impl, sc, extra = SHARDED_CASES[case]
+            d = scene_dir if sc == "pair" else strip_dir
+            pano = str(out_dir / f"{case}.png")
+            stats = str(out_dir / f"{case}.json")
+            res = {}
+            saved = os.environ.get("PANO_TPU_FORCE_CPU")
+            os.environ["PANO_TPU_FORCE_CPU"] = "1"
+            try:
+                for side, mod in (("jax", jcli), ("port", tcli)):
+                    rc, out, err = _call(mod.run, impl, [
+                        "--dir", d, "--out", pano, *extra, "--json", stats])
+                    res[side] = (
+                        rc, out, err,
+                        cv2.imread(pano) if os.path.exists(pano) else None,
+                        json.load(open(stats)) if os.path.exists(stats)
+                        else None,
+                    )
+                    for f in (pano, stats):
+                        if os.path.exists(f):
+                            os.remove(f)
+            finally:
+                if saved is None:
+                    del os.environ["PANO_TPU_FORCE_CPU"]
+                else:
+                    os.environ["PANO_TPU_FORCE_CPU"] = saved
+            memo[case] = res
+        return memo[case]
+
+    return get
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_stdout_and_exit_code_match_jax(sharded_runs, case):
+    """Line for line after the backend and device-count lines (JAX names
+    itself and its 8 virtual devices there), the tag "Sharded" on every
+    stage line; the panorama within the bar."""
+    rc_j, out_j, err_j, pano_j, _ = sharded_runs(case)["jax"]
+    rc_t, out_t, err_t, pano_t, _ = sharded_runs(case)["port"]
+    assert rc_t == rc_j == 0
+    lines_t = TIME.sub("X ms", out_t).splitlines()
+    lines_j = TIME.sub("X ms", out_j).splitlines()
+    assert lines_t[:2] == ["PyTorch backend: cpu",
+                           "Number of Available Devices: 1"]
+    assert lines_j[:2] == ["JAX backend: cpu",
+                           "Number of Available Devices: 8"]
+    assert lines_t[2:] == lines_j[2:]
+    assert lines_t[-1] == "Total Execution Time (Sharded): X ms"
+    assert all("(Sharded): X ms" in x for x in lines_t if x.endswith(" ms"))
+    assert err_t == err_j
+    _pano_bar(pano_t, pano_j)
+
+
+@pytest.mark.parametrize("case", sorted(SHARDED_CASES))
+def test_sharded_json_matches_jax(sharded_runs, case):
+    _, _, _, _, s_j = sharded_runs(case)["jax"]
+    _, out_t, _, pano_t, s_t = sharded_runs(case)["port"]
+    assert s_t.keys() == s_j.keys()
+    for key in ("impl", "mode", "ok"):
+        assert s_t[key] == s_j[key], key
+    assert s_t["impl"] == "sharded"
+    assert s_t["backend"] == "cpu" and s_t["num_devices"] == 1
+    assert [r["stage"] for r in s_t["stages"]] == \
+        [r["stage"] for r in s_j["stages"]]
+    printed = [m.group(1) for m in re.finditer(r"^(.+): \d+\.\d{3} ms$",
+                                               out_t, re.M)]
+    assert [r["stage"] for r in s_t["stages"]] == printed
+    assert s_t["panorama_shape"] == list(pano_t.shape)
+
+
 @pytest.mark.parametrize("impl", ["sharded", "openmp"])
-def test_sharded_is_not_ported_yet(impl, scene_dir, tmp_path):
+def test_sharded_without_a_card_fails_and_reads_no_image(
+        impl, scene_dir, tmp_path, monkeypatch):
+    """No CUDA device here: sharded (and its alias openmp) report it on
+    stderr and return -1 before reading an image or stitching."""
+    assert not torch.cuda.is_available()
+    monkeypatch.delenv("PANO_TPU_FORCE_CPU", raising=False)
+
+    def no_read(*a, **k):
+        raise AssertionError("sharded read images without a CUDA device")
+
+    monkeypatch.setattr(tcli, "read_images_from_args", no_read)
     out = str(tmp_path / "p.png")
-    rc, stdout, stderr = _call(tcli.run, impl, ["--dir", scene_dir,
-                                                "--out", out])
+    rc, stdout, stderr = _call(tcli.run, impl, ["--dir", scene_dir, "--out",
+                                                out])
     assert rc == -1 and stdout == ""
-    assert "not ported" in stderr and "A11b" in stderr
+    assert "the sharded implementation needs a CUDA device" in stderr
+    assert not os.path.exists(out)
+
+
+def test_sharded_without_a_card_exits_255(scene_dir, tmp_path):
+    out = str(tmp_path / "p.png")
+    env = {k: v for k, v in os.environ.items() if k != "PANO_TPU_FORCE_CPU"}
+    r = subprocess.run(
+        [sys.executable, "-m", "pano_tpu_torch.cli", "sharded", "--mode",
+         "chain", "--dir", scene_dir, "--out", out],
+        capture_output=True, text=True, timeout=120, cwd=REPO, env=env)
+    assert r.returncode == 255, r.stdout + r.stderr
+    assert "needs a CUDA device" in r.stderr and r.stdout == ""
     assert not os.path.exists(out)
 
 

@@ -722,3 +722,264 @@ def test_cli_gpu_runs_on_the_card(tmp_path):
     s = json.load(open(stats))
     assert (s["backend"], s["ok"], s["panorama_shape"]) == (
         "cuda", True, list(want.shape))
+
+
+# --- the batched entries (K1, K4b) and the sharded paths ------------------
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("nms", [3, 5, 11])
+@pytest.mark.parametrize("shape", [(151, 333), (64, 241)])
+def test_harris_batched_kernel_vs_plain(shape, nms, b):
+    """One launch over a stack of different images at odd sizes (so that
+    each element after the first starts 1-3 bytes past a word): every
+    map torch.equal to the plain version and to a single launch of its
+    image; the stencil (n = 3, 5) and the R plane with the fold (n = 11)."""
+    from pano_tpu_torch.ops import cuda_harris
+
+    imgs = torch.from_numpy(np.stack([_img(shape, 70 + i)
+                                      for i in range(b)])).cuda()
+    cuda_harris.launches = cuda_harris.batched_launches = 0
+    got = cuda_harris.harris_scores_batched(imgs, 0.04, 1e6, nms)
+    assert (cuda_harris.launches, cuda_harris.batched_launches) == (0, 1)
+    assert got.shape == (b, (shape[0] + 1) // 2, (shape[1] + 1) // 2)
+    assert torch.equal(got, cuda_harris.harris_scores_batched_plain(
+        imgs, 0.04, 1e6, nms))
+    for i in range(b):
+        assert torch.equal(got[i], cuda_harris.harris_scores(
+            imgs[i], 0.04, 1e6, nms))
+    assert bool(torch.isfinite(got).any())
+
+
+def test_harris_detect_batched_equals_single():
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import harris
+
+    imgs = torch.from_numpy(np.stack([_img((300, 451), 80 + i)
+                                      for i in range(3)])).cuda()
+    for got, img in zip(harris.harris_detect_batched(imgs,
+                                                     DEFAULT_CONFIG.harris),
+                        imgs):
+        want = harris.harris_detect(img, DEFAULT_CONFIG.harris)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# Mixed windows over one (200, 300) source shape, an empty one among them.
+BATCHED_WARPS = [
+    (PROJ, (3, 5, 240, 401)),
+    (PROJ, (3, 35, 240, 304)),
+    (_shift(3.25, 2.5), (100, 1, 101, 311)),
+    (PROJ, (7, 21, 230, 21)),
+    (PROJ, (7, 21, 230, 38)),
+    (np.diag([0.4, 0.4, 1.0]) @ PROJ, (0, 0, 100, 140)),
+    (_shift(40.5, 17.25), (15, 38, 219, 342)),
+]
+
+
+@pytest.mark.parametrize("emit_weight", [False, True])
+@pytest.mark.parametrize("has_alpha", [False, True])
+def test_warp_packed_batched_kernel_vs_plain(has_alpha, emit_weight):
+    """One launch over seven windows of mixed sizes (an empty one among
+    them) from seven sources: every RGB and weight torch.equal to the
+    plain version and to a single launch of its element."""
+    from pano_tpu_torch.ops import cuda_warp
+
+    srcs = [torch.from_numpy(_img((200, 300), 90 + i)).cuda()
+            for i in range(len(BATCHED_WARPS))]
+    m_invs = [np.linalg.inv(m) for m, _ in BATCHED_WARPS]
+    windows = [w for _, w in BATCHED_WARPS]
+    cuda_warp.packed_launches = cuda_warp.batched_packed_launches = 0
+    got = cuda_warp.warp_packed_batched(srcs, m_invs, windows, has_alpha,
+                                        emit_weight)
+    assert (cuda_warp.packed_launches,
+            cuda_warp.batched_packed_launches) == (0, 1)
+    want = cuda_warp.warp_packed_batched_plain(srcs, m_invs, windows,
+                                               has_alpha, emit_weight)
+    for (rgb, w), (rgb_p, w_p), s, m, win in zip(got, want, srcs, m_invs,
+                                                windows):
+        one_rgb, one_w = cuda_warp.warp_packed(s, m, win, has_alpha,
+                                               emit_weight)
+        assert torch.equal(rgb, rgb_p) and torch.equal(rgb, one_rgb)
+        if emit_weight:
+            assert torch.equal(w, w_p) and torch.equal(w, one_w)
+        else:
+            assert w is None and w_p is None
+    assert bool(got[0][0].any())
+
+
+@pytest.mark.parametrize("n", [16, 17, 37])
+def test_warp_packed_batched_counts_every_launch(n):
+    """More windows than one launch holds (16): a launch for each 16,
+    each counted, every output torch.equal to the plain version."""
+    from pano_tpu_torch.ops import cuda_warp
+
+    src = torch.from_numpy(_img((200, 300), 42)).cuda()
+    picks = [BATCHED_WARPS[k % len(BATCHED_WARPS)] for k in range(n)]
+    m_invs = [np.linalg.inv(m) for m, _ in picks]
+    windows = [w for _, w in picks]
+    cuda_warp.packed_launches = cuda_warp.batched_packed_launches = 0
+    got = cuda_warp.warp_packed_batched([src] * n, m_invs, windows)
+    assert (cuda_warp.packed_launches,
+            cuda_warp.batched_packed_launches) == (0, -(-n // 16))
+    want = cuda_warp.warp_packed_batched_plain([src] * n, m_invs, windows)
+    for (rgb, w), (rgb_p, w_p) in zip(got, want):
+        assert torch.equal(rgb, rgb_p) and torch.equal(w, w_p)
+
+
+def test_warp_packed_batched_main_path_windows():
+    """Three 4156x3117 crops into their chain windows (the strip's
+    offsets) in one launch, equal to three single launches."""
+    from pano_tpu_torch.ops import cuda_warp
+
+    srcs = [torch.from_numpy(_img((3117, 4156), 95 + i)).cuda()
+            for i in range(3)]
+    maps = [_shift(x, y) for x, y in ((1400, 37), (2800, 15), (4200, 52))]
+    windows = [(y - 2 if y >= 2 else 0, x - 2, min(y + 3117 + 2, 3169),
+                min(x + 4156 + 2, 8356)) for x, y in ((1400, 37),
+                                                     (2800, 15), (4200, 52))]
+    m_invs = [np.linalg.inv(m) for m in maps]
+    got = cuda_warp.warp_packed_batched(srcs, m_invs, windows)
+    for (rgb, w), s, m, win in zip(got, srcs, m_invs, windows):
+        one_rgb, one_w = cuda_warp.warp_packed(s, m, win)
+        assert torch.equal(rgb, one_rgb) and torch.equal(w, one_w)
+
+
+@pytest.mark.parametrize("case", ["projective_full", "fold", "planted",
+                                  "touch_bottom_right"])
+def test_batched_overlay_route_equals_k4a(case):
+    """composite_pairs_batched sends overlay without gain through batched
+    K4b + K5 overlay: the canvas torch.equal to K4a's
+    (PairStitcher.composite on the card)."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+    from pano_tpu_torch.ops import cuda_compose, cuda_warp
+    from pano_tpu_torch.parallel import shard
+
+    lshape, rshape, _, _, _, m = CANVAS_CASES[case]
+    if lshape != rshape:  # a batch shares the left and right shapes
+        rshape = lshape
+    left = torch.from_numpy(_img(lshape, 66)).cuda()
+    right = torch.from_numpy(_img(rshape, 67)).cuda()
+    cuda_warp.launches = cuda_warp.batched_packed_launches = 0
+    cuda_compose.launches = 0
+    got = shard.composite_pairs_batched(left[None], right[None], m[None],
+                                        np.ones(1, bool), DEFAULT_CONFIG)
+    assert (cuda_warp.launches, cuda_warp.batched_packed_launches,
+            cuda_compose.launches) == (0, 1, 1)
+    want = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                        device="cuda").composite(left, right, m)
+    assert cuda_warp.launches == 1
+    assert torch.equal(torch.from_numpy(got[0]), want.cpu())
+
+
+def test_batched_estimate_without_a_mesh_runs_on_the_card():
+    """CPU tensors and no mesh: the inputs go to the first card, K1 runs
+    there, and the rows equal a mesh of the card's."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import cuda_harris
+    from pano_tpu_torch.parallel import shard
+
+    imgs = _strip_images(31)
+    lefts = torch.from_numpy(np.stack(imgs[:2]))
+    rights = torch.from_numpy(np.stack(imgs[1:3]))
+    cuda_harris.batched_launches = 0
+    packed, _ = shard.fused_estimate_batched(lefts, rights, DEFAULT_CONFIG)
+    assert packed.device.type == "cuda" and cuda_harris.batched_launches == 1
+    want, _ = shard.fused_estimate_batched(lefts.cuda(), rights.cuda(),
+                                           DEFAULT_CONFIG,
+                                           shard.make_mesh(1, 1))
+    assert torch.equal(packed, want)
+
+
+def _strip_images(seed, n=4, h=128, step=70, w=140):
+    r = np.random.default_rng(seed)
+    base = r.integers(0, 60, (h, step * (n - 1) + w, 3)).astype(np.uint8)
+    for _ in range(300):
+        y, x = r.integers(2, h - 10), r.integers(2, base.shape[1] - 10)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    return [base[:, i * step:i * step + w].copy() for i in range(n)]
+
+
+@pytest.mark.parametrize("n_data", [1, 3])
+@pytest.mark.parametrize("mode", ["chain", "auto"])
+def test_sharded_modes_on_the_card_equal_one_device(mode, n_data):
+    """stitch_all_images_sharded on a mesh of the card (repeated n_data
+    times) gives the one-device mode's panorama byte for byte, through
+    batched K1 (one launch per data shard, or per image stack in auto)
+    and batched K4b."""
+    import contextlib
+    import io
+
+    from pano_tpu_torch import DEFAULT_CONFIG, stitch_all_images
+    from pano_tpu_torch.ops import cuda_harris, cuda_warp
+    from pano_tpu_torch.parallel import shard
+
+    imgs = _strip_images(71)
+    mesh = shard.make_mesh(n_data, 1,
+                           devices=[torch.device("cuda")] * n_data)
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = stitch_all_images(imgs, DEFAULT_CONFIG, mode=mode,
+                                 device="cuda")
+        cuda_harris.launches = cuda_harris.batched_launches = 0
+        cuda_warp.packed_launches = cuda_warp.batched_packed_launches = 0
+        got = shard.stitch_all_images_sharded(imgs, DEFAULT_CONFIG,
+                                              mesh=mesh, mode=mode)
+    assert cuda_harris.launches == 0 and cuda_warp.packed_launches == 0
+    assert cuda_harris.batched_launches == (n_data if mode == "chain" else 1)
+    assert cuda_warp.batched_packed_launches == n_data
+    np.testing.assert_array_equal(got, want)
+
+
+def test_sharded_paths_across_cards():
+    """On a host with several cards: every sharded path on a mesh of the
+    real cards gives what it gives on the first card repeated (chain,
+    auto, the hyp-sharded fold, four batched pairs, the 2-wide hyp step,
+    the row-sharded matcher)."""
+    import contextlib
+    import io
+
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import match
+    from pano_tpu_torch.parallel import shard
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    cards = [torch.device("cuda", i) for i in range(n)]
+    first = [cards[0]] * n
+    imgs = _strip_images(72, n=max(4, n))
+
+    def both(fn):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return fn(cards), fn(first)
+
+    for mode in ("chain", "auto"):
+        a, b = both(lambda d: shard.stitch_all_images_sharded(
+            imgs, DEFAULT_CONFIG, mesh=shard.make_mesh(n, 1, devices=d),
+            mode=mode))
+        np.testing.assert_array_equal(a, b)
+    a, b = both(lambda d: shard.stitch_all_images_sharded(
+        imgs[:3], DEFAULT_CONFIG, mesh=shard.make_mesh(1, n, devices=d)))
+    np.testing.assert_array_equal(a, b)
+    lefts = torch.from_numpy(np.stack(imgs[:3] + imgs[:1])).cuda()
+    rights = torch.from_numpy(np.stack(imgs[1:4] + imgs[1:2])).cuda()
+    a, b = both(lambda d: shard.stitch_pairs_batched(
+        lefts, rights, DEFAULT_CONFIG, shard.make_mesh(n, 1, devices=d)))
+    assert all(x is not None for x in a)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    if n % 2 == 0:
+        (ha, ca), (hb, cb) = both(lambda d: shard.batched_stitch_step(
+            shard.make_mesh(n // 2, 2, devices=d), lefts[:n // 2],
+            rights[:n // 2], DEFAULT_CONFIG))
+        assert torch.equal(ha, hb) and torch.equal(ca, cb)
+    r = np.random.default_rng(5)
+    args = (torch.from_numpy(r.integers(0, 255, (64 * n, 128))).float(),
+            torch.from_numpy(r.random(64 * n) > 0.2),
+            torch.from_numpy(r.integers(0, 255, (300, 128))).float(),
+            torch.from_numpy(r.random(300) > 0.2))
+    args = tuple(t.cuda() for t in args)
+    local = match.match_descriptors(*args, 1e18, ratio_thresh=0.8)
+    got = shard.match_descriptors_sharded(*args, 1e18,
+                                          shard.make_mesh(n, 1),
+                                          ratio_thresh=0.8)
+    assert all(torch.equal(x, y) for x, y in zip(local, got))

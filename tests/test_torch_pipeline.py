@@ -205,15 +205,16 @@ def test_failure_ladder_composites_best_effort_h():
 
 def test_import_leaves_jax_out():
     """Every module of the package (the multi-image ones, ops.bundle and
-    ops.mip, the CLI, io and eval included) imports without jax or
-    pano_tpu."""
+    ops.mip, the CLI, io, eval and parallel.shard included) imports
+    without jax or pano_tpu."""
     code = (
         "import importlib, pkgutil, sys, pano_tpu_torch; "
         "mods = [m.name for m in pkgutil.walk_packages("
         "pano_tpu_torch.__path__, 'pano_tpu_torch.')]; "
         "assert {'pano_tpu_torch.ops.bundle', 'pano_tpu_torch.ops.mip', "
         "'pano_tpu_torch.pipeline', 'pano_tpu_torch.cli', "
-        "'pano_tpu_torch.io', 'pano_tpu_torch.eval'} <= set(mods), mods; "
+        "'pano_tpu_torch.io', 'pano_tpu_torch.eval', "
+        "'pano_tpu_torch.parallel.shard'} <= set(mods), mods; "
         "[importlib.import_module(m) for m in mods]; "
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'pano_tpu' or m.startswith('pano_tpu.')]; "

@@ -12,8 +12,10 @@ and its 3154x5556 canvas, the K5 window from K4b with the ramp alpha. It
 prints one JSON line: each kernel's output against its plain version
 (torch.equal), its median time around the wrapper with L2 flushed
 (``ms``) and its device time alone (``device_ms``: the card warmed, a
-spin before each of 20 runs) for K1, K2 (on the left image's keypoints),
-K3, K4a, K4b, K5 and a one-element ``fill_`` (the launch floor); and the
+spin before each of 20 runs) for K1 (also at the NMS windows 11 and 15),
+K2 (on the left image's keypoints), K3, K4a, K4b, K5, the batched K1
+(four images) and K4b (three windows, and 17) where the package has them, and a one-element ``fill_`` (the launch
+floor); and the
 describe step of a pair (``describe_ms``:
 both images' ``extract_patch_descriptors``, host clock around
 synchronizes, median of 20). K2 before its border test moved into the
@@ -96,6 +98,10 @@ def main() -> None:
     one = torch.zeros(1, device="cuda")
     runs = {
         "K1": lambda: cuda_harris.harris_scores(left, h.k, h.nms_thresh),
+        "K1_nms11": lambda: cuda_harris.harris_scores(left, h.k,
+                                                      h.nms_thresh, 11),
+        "K1_nms15": lambda: cuda_harris.harris_scores(left, h.k,
+                                                      h.nms_thresh, 15),
         "K2": k2,
         "K3": lambda: cuda_match.match_cores(*k3),
         "K4a": lambda: cuda_warp.warp_compose_overlay(*k4a),
@@ -107,6 +113,28 @@ def main() -> None:
         "K5_overlay": lambda: cuda_compose.compose_canvas(*k5["overlay"]),
         "launch_floor": lambda: one.fill_(1.0),  # a one-element fill_
     }
+    if hasattr(cuda_harris, "harris_scores_batched"):
+        # The batched entries: K1 over (left, right, left, right), K4b
+        # over the planted window of three sources.
+        stack = torch.stack([left, right, left, right])
+        srcs = [right, left, right]
+        equal["K1_batch4"] = torch.equal(
+            cuda_harris.harris_scores_batched(stack, h.k, h.nms_thresh),
+            cuda_harris.harris_scores_batched_plain(stack, h.k,
+                                                    h.nms_thresh))
+        equal["K4b_batch3"] = all(
+            torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+            for a, b in zip(
+                cuda_warp.warp_packed_batched(srcs, [geo.m_inv] * 3,
+                                              [geo.window] * 3),
+                cuda_warp.warp_packed_batched_plain(srcs, [geo.m_inv] * 3,
+                                                    [geo.window] * 3)))
+        runs["K1_batch4"] = lambda: cuda_harris.harris_scores_batched(
+            stack, h.k, h.nms_thresh)
+        runs["K4b_batch3"] = lambda: cuda_warp.warp_packed_batched(
+            srcs, [geo.m_inv] * 3, [geo.window] * 3)
+        runs["K4b_batch17"] = lambda: cuda_warp.warp_packed_batched(
+            [right] * 17, [geo.m_inv] * 17, [geo.window] * 17)
     timer = C.Timer(torch)
     ms = {k: timer(fn) for k, fn in runs.items()}
     timer.warm()
