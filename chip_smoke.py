@@ -131,11 +131,35 @@ failure.
    pano_tpu_torch.cli sharded --mode chain` in a child process: its lines,
    and its file equal to phase 9's panorama.
 
-14. The last three lines are the nvidia-smi line, a JSON object with
+14. the measuring and driver layer, on phase 3's pair at full size:
+   (b) benchmark_throughput_torch.throughput at depth 1 and 3, 30 pairs,
+   in turns (1, 3, 3, 1): pairs/s, ms_per_pair, peak memory, K1-K4a x31,
+   no fallback pair; at each depth once more untimed through its loop
+   (`pipelined`), every retired panorama torch.equal to phase 5's; the
+   synchronizing operations a pair pays under
+   torch.cuda.set_sync_debug_mode; (a) then bench_torch's measurement
+   (`_measure`: `measure`'s JSON and its last panorama): bench.py's keys, K1-K4a x9 (warm-up, 5
+   timed calls, 3 traced), device_compute_ms between 0 and value (the
+   busy share logged), the block's last panorama torch.equal to phase
+   5's; and the loop at depth 1 once more after its profiler block;
+   (c) benchmark_panorama_torch.py in child processes: the resolution
+   sweep through the gpu CLI at scales 0.25, 0.5, 1.0 of the pair's .ppm
+   files, and the device sweep on the card repeated at 1, 2, 4
+   (--device-scale 1.0 --kpts 8192), each row's host fetches 1 for the
+   estimates and 2 for the whole batch; (d)
+   benchmark_serial_parallel_torch.py on the pair's directory at full
+   size; (f) `bash pano_torch.sh perf gpu` on the pair: exit 0, the
+   report naming K1, K2, K3 (its three kernels) and K4a with non-zero
+   device time; (e) graft_entry_torch.entry() on the card (K1 x2, K2 x2,
+   K3 x1) against the CPU's (inliers equal, H within 0.5 px, canvas
+   within 1) and dryrun_multichip(1) (and the card count where there is
+   more than one card) against the CPU's.
+
+15. The last three lines are the nvidia-smi line, a JSON object with
 the per-kernel numbers (each kernel's launches from the path that runs
 it: K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
 overlay chain, the batched K1 and K4b from phase 13's chain on the
-card), and {"ok": true, ...}. The whole run takes about three minutes of
+card), and {"ok": true, ...}. The whole run takes about five minutes of
 command time on an H100, the build included.
 """
 
@@ -143,6 +167,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import functools
 import io
 import json
@@ -1162,6 +1187,253 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
     return launches_c
 
 
+# bench.py's JSON keys, which bench_torch.py prints on the card.
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "device_compute_ms"}
+# Phase 14's throughput loop: pairs a run, and the depths it runs at.
+THROUGHPUT_PAIRS = 30
+THROUGHPUT_DEPTHS = (1, 3, 3, 1)   # in turns
+# The kernels phase 14 (f) must find in the CLI's profiler trace: the
+# overlay pair's K1, K2, K3 (its three launches' kernels) and K4a.
+TRACE_KERNELS = {"K1": ("harris_scores_kernel",),
+                 "K2": ("gather_patches_kernel",),
+                 "K3": ("prologue_kernel", "match_kernel", "finish_kernel"),
+                 "K4a": ("warp_overlay_canvas_kernel",)}
+TABLE_ROW = re.compile(r"^  (.+?)\s+(\d+\.\d{3}) ms  x(\d+)$")
+
+
+def driver_phase(torch, mods, none, smi, pair, pair_np, pano_ref,
+                 pair_launches) -> None:
+    """Phase 14: the measuring and driver layer on the planted pair at
+    full size. (b) the throughput loop at depth 1 and 3, in turns; (a)
+    bench_torch.measure; (c) the resolution sweep through the gpu CLI and the device
+    sweep over the card repeated; (d) serial against gpu; (e)
+    graft_entry_torch's forward step and dry runs; (f) pano_torch.sh
+    perf. The in-process paths run with every launch count zeroed just
+    before and read just after; the children's kernels show in (f)'s
+    trace."""
+    import bench_torch
+    import benchmark_throughput_torch as bt
+    import graft_entry_torch as ge
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, _build
+    from pano_tpu_torch import io as tio
+
+    left, right = pair
+
+    def zero():
+        for mod, attr in mods.values():
+            setattr(mod, attr, 0)
+
+    def counts():
+        torch.cuda.synchronize()
+        return {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
+
+    def pairs_launches(n):
+        return {k: v * n for k, v in pair_launches.items()}
+
+    # (b) the throughput loop: a timed run (launches read around it), then
+    # an untimed one at the same depth whose every retired panorama is
+    # checked; then the syncs a pair pays, counted
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device=DEVICE)
+
+    checked = set()
+    for depth in THROUGHPUT_DEPTHS:
+        zero()
+        torch.cuda.reset_peak_memory_stats()
+        res = bt.throughput(st, left, right, THROUGHPUT_PAIRS, depth)
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        launches = counts()
+        check(launches == pairs_launches(THROUGHPUT_PAIRS + 1),
+              f"throughput depth {depth}: kernel launches {launches}")
+        check(res["fallback_pairs"] == 0 and res["depth"] == depth,
+              f"throughput: {res}")
+        retired_checked = depth not in checked
+        if retired_checked:
+            n = 0
+            for pano, row in bt.pipelined(
+                    st, [(left, right)] * THROUGHPUT_PAIRS, depth):
+                check(pano is not None and row[11] > 0.5
+                      and torch.equal(pano, pano_ref),
+                      f"throughput: retired panorama {n} differs from "
+                      f"phase 5's")
+                n += 1
+            check(n == THROUGHPUT_PAIRS, f"throughput: {n} retired")
+            checked.add(depth)
+        print("  " + json.dumps(res), flush=True)
+        log(f"throughput depth {depth}", pairs_per_s=res["value"],
+            ms_per_pair=res["ms_per_pair"], pairs=THROUGHPUT_PAIRS,
+            peak_mem_mib=round(peak, 1),
+            retired_checked_equal_to_phase5=retired_checked,
+            launches=launches, card=f"'{smi}'")
+    log("throughput syncs", flagged_syncs_per_pair=bt.host_syncs_per_pair(
+        st, left, right, 3))
+
+    # (a) the headline bench: warm-up, 5 timed calls, 3 traced ones (after
+    # (b), so that no profiler run precedes the loop's timed runs)
+    zero()
+    out, pano = bench_torch._measure(left, right, 5, DEVICE)
+    launches = counts()
+    check(set(out) == BENCH_KEYS, f"bench: keys {sorted(out)}")
+    check(launches == pairs_launches(1 + 5 + bench_torch.TRACE_REPS),
+          f"bench: kernel launches {launches}")
+    check(torch.equal(pano, pano_ref),
+          "bench: the panorama differs from phase 5's")
+    check(0 < out["device_compute_ms"] < out["value"],
+          f"bench: device_compute_ms {out['device_compute_ms']} against "
+          f"value {out['value']}")
+    del pano
+    print("  " + json.dumps(out), flush=True)
+    log("bench", value_ms=out["value"],
+        device_compute_ms=out["device_compute_ms"],
+        busy_share=out["device_compute_ms"] / out["value"],
+        launches=launches, card=f"'{smi}'")
+
+    # The throughput loop once more after (a)'s torch.profiler block: does
+    # profiling slow the launches that follow it?
+    res = bt.throughput(st, left, right, THROUGHPUT_PAIRS, 1)
+    log("throughput after the profiler", pairs_per_s=res["value"],
+        ms_per_pair=res["ms_per_pair"], depth=1)
+
+    with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as d:
+        data = os.path.join(d, "pair")
+        os.makedirs(data)
+        paths = [os.path.join(data, f"{n}.ppm") for n in ("left", "right")]
+        for path, img in zip(paths, pair_np):
+            check(tio.imwrite_bgr(path, img), f"driver: writing {path}")
+
+        # (c) the resolution sweep through the gpu CLI, then the device
+        # sweep on the card repeated at full size
+        res_csv = os.path.join(d, "res.csv")
+        proc, wall = run_python([
+            "benchmark_panorama_torch.py", "--dataset", data, "--impl", "gpu",
+            "--scales", "0.25,0.5,1.0", "--repeats", "1", "--csv", res_csv,
+            "--plot", os.path.join(d, "res.png")])
+        check(proc.returncode == 0, f"resolution sweep: exit "
+              f"{proc.returncode}\n{proc.stdout}\n{proc.stderr[-3000:]}")
+        rows = [(float(r["scale"]), float(r["ms"]))
+                for r in csv.DictReader(open(res_csv))]
+        check([s for s, _ in rows] == [0.25, 0.5, 1.0]
+              and all(ms > 0 for _, ms in rows),
+              f"resolution sweep: rows {rows}")
+        log("resolution sweep", impl="gpu", scale_ms=rows,
+            process_wall_ms=round(wall, 3), card=f"'{smi}'")
+
+        dev_csv = os.path.join(d, "dev.csv")
+        proc, wall = run_python([
+            "benchmark_panorama_torch.py", "--dataset", data, "--devices",
+            "1,2,4", "--device-scale", "1.0", "--kpts", "8192", "--csv",
+            dev_csv, "--plot", os.path.join(d, "dev.png")])
+        check(proc.returncode == 0, f"device sweep: exit "
+              f"{proc.returncode}\n{proc.stdout}\n{proc.stderr[-3000:]}")
+        rows = list(csv.DictReader(open(dev_csv)))
+        # The tests' values: one fetch for the estimates' batch, one for
+        # the composite group of the batch's identical pairs.
+        check([(r["devices"], r["batch"], r["est_fetches"],
+                r["full_fetches"]) for r in rows]
+              == [("1", "8", "1", "2"), ("2", "8", "1", "2"),
+                  ("4", "8", "1", "2")], f"device sweep: rows {rows}")
+        log("device sweep", mesh="the card repeated", kpts=8192,
+            rows=[{k: r[k] for k in ("devices", "batch", "est_ms", "full_ms",
+                                     "pairs_per_s")} for r in rows],
+            fetches="1 / 2 per batch", process_wall_ms=round(wall, 3))
+
+        # (d) serial against gpu on the pair's directory, at full size
+        sp_csv = os.path.join(d, "sp.csv")
+        proc, wall = run_python([
+            "benchmark_serial_parallel_torch.py", "--datasets", data,
+            "--repeats", "1", "--csv", sp_csv, "--plot",
+            os.path.join(d, "sp.png")])
+        check(proc.returncode == 0, f"serial vs gpu: exit "
+              f"{proc.returncode}\n{proc.stdout}\n{proc.stderr[-3000:]}")
+        row, = csv.DictReader(open(sp_csv))
+        check(float(row["serial_s"]) > 0 and float(row["gpu_s"]) > 0,
+              f"serial vs gpu: {row}")
+        log("serial vs gpu", scale=1.0, serial_s=row["serial_s"],
+            gpu_s=row["gpu_s"], speedup=row["speedup"],
+            process_wall_ms=round(wall, 3), card=f"'{smi}'")
+
+        # (f) pano_torch.sh perf on the pair: the report's kernels
+        # (the report goes to the working directory, the trace to d)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("PANO_TPU_FORCE_CPU", "PANO_TPU_PROFILE")}
+        env["PANO_TPU_TRACE_DIR"] = os.path.join(d, "gpu_perf_trace")
+        root = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            ["bash", os.path.join(root, "pano_torch.sh"), "perf", "gpu",
+             *paths, "--out", os.path.join(d, "perf.ppm")], cwd=d, env=env,
+            capture_output=True, text=True, timeout=600)
+        wall = (time.perf_counter() - t0) * 1e3
+        report = open(os.path.join(d, "gpu_perf_report.txt")).read()
+        check(proc.returncode == 0 and "device busy" in report,
+              f"pano_torch.sh perf: exit {proc.returncode}\n{proc.stdout}"
+              f"\n{proc.stderr[-3000:]}")
+        table = {}
+        for m in map(TABLE_ROW.match, report.splitlines()):
+            if m:
+                table[m.group(1)] = table.get(m.group(1), 0.0) + float(
+                    m.group(2))
+        found = {}
+        for k, names in TRACE_KERNELS.items():
+            found[k] = {n: round(sum(ms for row, ms in table.items()
+                                     if n in row), 3) for n in names}
+            check(all(v > 0 for v in found[k].values()),
+                  f"pano_torch.sh perf: {k} {found[k]} in the report\n"
+                  f"{report}")
+        busy = report.strip().splitlines()[-1]
+        log("pano_torch.sh perf", kernels_ms=found, report_busy=busy,
+            process_wall_ms=round(wall, 3))
+
+    # (e) the driver entry points on the card, against the CPU
+    zero()
+    fn, args = ge.entry()
+    h, count, canvas = fn(*args)
+    launches = counts()
+    check(launches == {**none, "K1": 2, "K2": 2, "K3": 1},
+          f"entry: kernel launches {launches}")
+    fn_c, args_c = ge.entry("cpu")
+    h_c, count_c, canvas_c = fn_c(*args_c)
+    corners = np.array([[0, 0, 1], [160, 0, 1], [160, 128, 1], [0, 128, 1]],
+                       np.float64)
+    pa = corners @ h.double().cpu().numpy().T
+    pb = corners @ h_c.double().numpy().T
+    h_err = float(np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max())
+    d_canvas = int((canvas.cpu().int() - canvas_c.int()).abs().max())
+    check(int(count) == int(count_c) > 0 and h_err < 0.5 and d_canvas <= 1
+          and tuple(canvas.shape) == (128, 256, 3),
+          f"entry: inliers {int(count)} / {int(count_c)} (cpu), H off by "
+          f"{h_err} px, canvas max |d| {d_canvas}")
+    log("graft entry", inliers=int(count), h_err_vs_cpu_px=round(h_err, 6),
+        canvas_max_abs_diff_vs_cpu=d_canvas, launches=launches)
+    sizes = [1] + ([torch.cuda.device_count()]
+                   if torch.cuda.device_count() > 1 else [])
+    for n in sizes:
+        zero()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            hs, cnt = ge.dryrun_multichip(n)
+        launches = counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            hs_c, cnt_c = ge.dryrun_multichip(n, device="cpu")
+        n_data = len(hs)
+        err = 0.0
+        small = np.array([[0, 0, 1], [96, 0, 1], [96, 64, 1], [0, 64, 1]],
+                         np.float64)
+        for a, b in zip(hs, hs_c):
+            pa, pb = small @ a.T, small @ b.T
+            err = max(err, float(np.abs(pa[:, :2] / pa[:, 2:]
+                                        - pb[:, :2] / pb[:, 2:]).max()))
+        want = {**none, "K1b": n_data, "K2": 2 * n_data, "K3": n_data,
+                "K4bb": 1, "K5": n_data} if n == 1 else None
+        check(np.array_equal(cnt, cnt_c) and err < 0.5
+              and (want is None or launches == want),
+              f"dryrun_multichip({n}): inliers {cnt} / {cnt_c} (cpu), H off "
+              f"by {err} px, launches {launches}")
+        print("  " + buf.getvalue().strip(), flush=True)
+        log(f"dryrun_multichip {n}", inliers=cnt.tolist(),
+            h_err_vs_cpu_px=round(err, 6), launches=launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1649,6 +1921,7 @@ def main() -> None:
     check(d_staged <= 1, f"staged vs fused panorama max |d| {d_staged}")
     log("staged path", canvas=tuple(pano_s.shape), fused=tuple(pano.shape),
         max_abs_diff_vs_fused=d_staged)
+    pano_ref = pano  # phase 14's benches must give these bytes
     del pano, pano_s
 
     # 9. chain, through the entry point a user calls, on the strip
@@ -1794,7 +2067,11 @@ def main() -> None:
     launches_s = shard_phase(torch, mods, none, timer, res, smi, strip,
                              strip_np, (left, right), chain_ref, auto_ref)
     del chain_ref, auto_ref
-    # 14. the record lines
+    # 14. the measuring and driver layer
+    driver_phase(torch, mods, none, smi, (left, right), (left_np, right_np),
+                 pano_ref, launches)
+    del pano_ref
+    # 15. the record lines
     all_launches = {**launches, "K4b": launches_f["K4b"],
                     "K5": launches_f["K5"], "K6": chain_launches["K6"],
                     "K1b": launches_s["K1b"], "K4bb": launches_s["K4bb"]}

@@ -24,7 +24,8 @@ As in the JAX package:
   its pairs, then K2 per image and K3 per pair (in JAX these two fall back
   to XLA under vmap), RANSAC per pair, one host fetch for the batch; then
   ``composite_pairs_batched``: one batched K4b launch per group of pairs of
-  equal (canvas, window) size and shard, and K5 per pair;
+  equal (canvas, window) size and shard, K5 per pair, each canvas copied
+  to the host as it is composed, and one host fetch per group;
 * ``batched_stitch_step``: pairs over data, hypotheses over hyp;
 * ``match_descriptors_sharded``: query rows over the data axis;
 * the multi-image modes (``stitch_all_images_sharded``: chain, auto and
@@ -324,7 +325,9 @@ def composite_pairs_batched(
     pair from the host; pairs of equal (canvas, window) size form a group,
     warped by one batched K4b launch per data shard, then composed pair by
     pair as ``PairStitcher._compose_window`` does (the window context for
-    multiband or gain, then K5). Overlay without gain goes through K4b +
+    multiband or gain, then K5), each canvas copied as it is composed into
+    the group's host buffer (pinned on a card), which comes out in one
+    fetch. Overlay without gain goes through K4b +
     K5 overlay too, which gives K4a's canvas bit for bit (the plain
     versions are one function, and each kernel is bit-identical to its
     plain version)."""
@@ -354,7 +357,16 @@ def composite_pairs_batched(
     has_alpha = st.blend != "overlay"
     emit_weight = has_alpha or st.gain_compensation
     out: List[Optional[np.ndarray]] = [None] * b_total
+    pinned = mesh.device().type == "cuda"
     for idxs in groups.values():
+        # Each canvas goes to one host buffer for the group as soon as it
+        # is composed (non-blocking on a card), so that a card holds one
+        # canvas at a time; the group comes out in one fetch, as the JAX
+        # package fetches each group's batched dispatch.
+        _, _, _, _, ch, cw = geo[idxs[0]]
+        host = torch.empty((len(idxs), ch, cw, 3), dtype=torch.uint8,
+                           pin_memory=pinned)
+        copied, done = [], set()
         for dev, shard in _data_shards(mesh, len(idxs)):
             members = [idxs[k] for k in shard]
             if not members:
@@ -363,12 +375,22 @@ def composite_pairs_batched(
                 [_to(rights[b], dev) for b in members],
                 [geo[b][0] for b in members], [geo[b][3] for b in members],
                 has_alpha, emit_weight)
-            for b, (rgb, w) in zip(members, warped):
-                if out[b] is not None:
+            for k, b, (rgb, w) in zip(shard, members, warped):
+                if k in done:
                     continue  # a padded repeat
+                done.add(k)
                 _, ty, tx, window, ch, cw = geo[b]
-                out[b] = pipeline._host_fetch(stitcher._compose_window(
-                    _to(lefts[b], dev), rgb, w, ty, tx, window, ch, cw))
+                host[k].copy_(stitcher._compose_window(
+                    _to(lefts[b], dev), rgb, w, ty, tx, window, ch, cw),
+                    non_blocking=pinned)
+            if dev.type == "cuda":
+                copied.append(torch.cuda.Event())
+                copied[-1].record(torch.cuda.current_stream(dev))
+        for event in copied:
+            event.synchronize()
+        fetched = pipeline._host_fetch(host)
+        for k, b in enumerate(idxs):
+            out[b] = fetched[k]
     return out
 
 

@@ -20,6 +20,10 @@ Fused path (``stitch_pair_fast``):
    the exact canvas allocated, and the composite (``_compose``) with the
    warped bbox as its window.
 
+Steps 1-3 and the row's copy to the host are ``PairStitcher.dispatch``,
+steps 4-5 ``retire``; ``stitch_pair_fast`` is ``retire(dispatch(...))``,
+and a caller may keep several dispatched pairs in flight.
+
 Staged path (``stitch_pair``): detect, match and RANSAC one stage at a
 time, each synchronized and, with ``print_timing``, timed in the
 reference's stage-line format; then ``composite``, the staged geometry
@@ -126,6 +130,15 @@ def fused_canvas_geometry(
     return FusedGeometry(
         full, int(canvas_h), int(canvas_w), ty, tx, window, m_inv
     )
+
+
+class PendingPair(NamedTuple):
+    """A pair between ``PairStitcher.dispatch`` and ``retire``."""
+    left: torch.Tensor   # both images on the stitcher's device
+    right: torch.Tensor
+    pts: tuple           # (pts_q, pts_t, valid) for the fallback ladder
+    row: torch.Tensor    # the (14,) estimate row on the host (pinned on a GPU)
+    event: Optional[torch.cuda.Event]  # recorded after the row's copy
 
 
 def fast_path_crop(v: np.ndarray, canvas):
@@ -303,10 +316,38 @@ class PairStitcher:
     def stitch_pair_fast(self, left, right) -> Optional[torch.Tensor]:
         """Single-sync pair stitch. Returns the (canvas_h, canvas_w, 3) u8
         panorama on the stitcher's device, or None on failure."""
+        return self.retire(self.dispatch(left, right))
+
+    def dispatch(self, left, right) -> PendingPair:
+        """The first half of ``stitch_pair_fast``: enqueue the pair's fused
+        estimate and the row's copy to the host, and return without
+        waiting for either. On the GPU the row goes into pinned host
+        memory with a non-blocking copy and an event recorded after it,
+        so that several pairs can be in flight (benchmark_throughput_torch.py);
+        on the CPU the row is already on the host."""
         left_d = self._to_device(left)
         right_d = self._to_device(right)
         row_dev, pts = self._fused_estimate_impl(left_d, right_d)
-        row = row_dev.cpu().numpy()          # the one host sync per pair
+        if row_dev.device.type != "cuda":
+            return PendingPair(left_d, right_d, pts, row_dev, None)
+        row = torch.empty(row_dev.shape, dtype=row_dev.dtype, pin_memory=True)
+        row.copy_(row_dev, non_blocking=True)
+        # The copy runs on the row's device's current stream, which need
+        # not be the current device's.
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(row_dev.device))
+        return PendingPair(left_d, right_d, pts, row, event)
+
+    def retire(self, pending: PendingPair) -> Optional[torch.Tensor]:
+        """The second half of ``stitch_pair_fast``: wait for the row (the
+        one host sync per pair), compute the canvas geometry on the host,
+        enqueue the composite at the exact canvas and return the panorama
+        on the stitcher's device, or None on failure (the fallback ladder
+        of ``interpret_fused_row`` when the estimate is below the gate)."""
+        left_d, right_d, pts, row_t, event = pending
+        if event is not None:
+            event.synchronize()
+        row = row_t.numpy()
         self.last_estimate = row
         if row[11] > 0.5:
             geo = fused_canvas_geometry(row, left_d.shape[:2],

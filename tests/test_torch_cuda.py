@@ -6,6 +6,8 @@ a machine without it they run without the JAX tests' conftest:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -983,3 +985,281 @@ def test_sharded_paths_across_cards():
                                           shard.make_mesh(n, 1),
                                           ratio_thresh=0.8)
     assert all(torch.equal(x, y) for x, y in zip(local, got))
+
+
+# --- the measuring and driver layer ----------------------------------------
+
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _scripts():
+    """The port's scripts at the repository root and under tools/, as
+    modules."""
+    import sys
+
+    for p in (_REPO, os.path.join(_REPO, "tools")):
+        if p not in sys.path:
+            sys.path.insert(0, p)
+    import bench_torch
+    import benchmark_throughput_torch
+    import graft_entry_torch
+    import torch_trace_summary
+    return (bench_torch, benchmark_throughput_torch, graft_entry_torch,
+            torch_trace_summary)
+
+
+def _shifted_pairs(seed, device="cuda"):
+    """Three pairs of different shifts (so of different canvases) on
+    `device`."""
+    return [tuple(torch.from_numpy(im).to(device)
+                  for im in _strip_images(seed + k, n=2, step=step))
+            for k, step in enumerate((50, 70, 90))]
+
+
+def _parent_path(st, left, right):
+    """stitch_pair_fast as it was before dispatch / retire: the row
+    fetched with .cpu(), then the exact canvas; with the row."""
+    from pano_tpu_torch import pipeline
+
+    row_dev, _ = st._fused_estimate_impl(left, right)
+    row = row_dev.cpu().numpy()
+    assert row[11] > 0.5
+    geo = pipeline.fused_canvas_geometry(row, left.shape[:2], right.shape[:2])
+    canvas = st._compose(left, right, geo.m_inv, geo.ty, geo.tx, geo.window,
+                         geo.canvas_h, geo.canvas_w)
+    return pipeline.fast_path_crop(geo.row, canvas)[1], row
+
+
+def test_dispatch_and_retire_on_the_card():
+    """dispatch copies the row into pinned memory behind an event; three
+    different pairs in flight each retire as their own stitch_pair_fast,
+    with their own row, which is the single-sync path's of before the
+    split (the row fetched with .cpu())."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    pairs = _shifted_pairs(80)
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    want = [_parent_path(st, left, right) for left, right in pairs]
+    assert len({tuple(p.shape) for p, _ in want}) == 3
+    for (left, right), (pano, row) in zip(pairs, want):
+        assert torch.equal(st.stitch_pair_fast(left, right), pano)
+        np.testing.assert_array_equal(st.last_estimate, row)
+    pending = [st.dispatch(left, right) for left, right in pairs]
+    assert all(p.row.is_pinned() and p.event is not None for p in pending)
+    for p, (pano, row) in zip(pending, want):
+        assert torch.equal(st.retire(p), pano)
+        np.testing.assert_array_equal(st.last_estimate, row)
+
+
+def test_dispatch_on_a_card_that_is_not_current():
+    """A stitcher on the second card while the first is current: the
+    row's event is recorded on the copy's stream, so each of three pairs
+    in flight retires as the single-sync path gives it there."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    pairs = _shifted_pairs(86, "cuda:1")
+    with torch.cuda.device(0):
+        st = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                          device="cuda:1")
+        want = [_parent_path(st, left, right) for left, right in pairs]
+        for _ in range(3):
+            pending = [st.dispatch(left, right) for left, right in pairs]
+            for p, (pano, row) in zip(pending, want):
+                got = st.retire(p)
+                assert got.device == torch.device("cuda:1")
+                assert torch.equal(got, pano)
+                np.testing.assert_array_equal(st.last_estimate, row)
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_throughput_loop_on_the_card(depth):
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    _, bt, _, _ = _scripts()
+    pairs = _shifted_pairs(81)
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    want = [_parent_path(st, left, right) for left, right in pairs]
+    out = bt.throughput(st, *pairs[0], 6, depth)
+    assert out["fallback_pairs"] == 0 and out["depth"] == depth
+    got = list(bt.pipelined(st, pairs * 2, depth))
+    assert len(got) == 6
+    for (pano, row), (want_pano, want_row) in zip(got, want * 2):
+        assert torch.equal(pano, want_pano)
+        np.testing.assert_array_equal(row, want_row)
+    # RANSAC's eigh waits for the card at least once a pair.
+    syncs = bt.host_syncs_per_pair(st, *pairs[0], 2)
+    assert syncs >= 1 and syncs == int(syncs)
+
+
+def test_bench_measure_on_the_card():
+    """bench.py's keys, device_compute_ms between 0 and the wall value,
+    and the block's last panorama stitch_pair_fast's."""
+    import ast
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    bench, _, _, _ = _scripts()
+    tree = ast.parse(open(f"{_REPO}/bench.py").read())
+    keys = {k.value for node in ast.walk(tree) if isinstance(node, ast.Dict)
+            and any(isinstance(k, ast.Constant) and k.value == "metric"
+                    for k in node.keys) for k in node.keys}
+    keys |= {"device_compute_ms"}   # added where bench.py's trace worked
+    left, right = _strip_images(82, n=2)
+    out, pano = bench._measure(left, right, 2, "cuda")
+    assert set(out) == keys == {"metric", "value", "unit", "vs_baseline",
+                                "device_compute_ms"}
+    assert 0 < out["device_compute_ms"] < out["value"]
+    want = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                        device="cuda").stitch_pair_fast(left, right)
+    assert torch.equal(pano, want)
+
+
+def test_trace_summary_reads_a_cuda_trace(tmp_path):
+    """A torch.profiler trace of K1 and a copy: device time and the
+    kernel's name, with the union no more than the events' sum."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pano_tpu_torch.ops import cuda_harris
+
+    _, _, _, tts = _scripts()
+    img = torch.from_numpy(_img((480, 640), 83)).cuda()
+    cuda_harris.harris_scores(img, 0.04, 1e6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_harris.harris_scores(img, 0.04, 1e6)
+        img.cpu()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    trace = tts.load(path)
+    dev = tts._complete(trace, tts.DEVICE_CATS)
+    busy = tts.device_busy_ms(trace)
+    # `ts` is an absolute time in us (~1e12): an interval's end - start
+    # carries the last bits of its float64, ~1e-3 us an event.
+    assert 0 < busy <= sum(e["dur"] for e in dev) / 1e3 + 1e-6 * len(dev)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        tts.summarize(trace)
+    k1 = [line for line in text.getvalue().splitlines()
+          if "harris_scores_kernel" in line]
+    assert k1 and k1[0].rstrip().endswith("x3")
+
+
+def test_graft_entry_on_the_card():
+    """entry() and dryrun_multichip(1), (2) on the card (repeated where
+    there is one) against the CPU's: the same inlier counts, H within
+    0.5 px at the corners."""
+    import contextlib
+    import io
+
+    _, _, ge, _ = _scripts()
+    fn, args = ge.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    h, count, canvas = fn(*args)
+    fn_c, args_c = ge.entry("cpu")
+    h_c, count_c, canvas_c = fn_c(*args_c)
+    c = np.array([[0, 0, 1], [160, 0, 1], [160, 128, 1], [0, 128, 1]], float)
+
+    def err(a, b):
+        pa, pb = c @ np.asarray(a, float).T, c @ np.asarray(b, float).T
+        return np.abs(pa[:, :2] / pa[:, 2:] - pb[:, :2] / pb[:, 2:]).max()
+
+    assert int(count) == int(count_c) > 0
+    assert err(h.cpu().numpy(), h_c.numpy()) < 0.5
+    assert (canvas.cpu().int() - canvas_c.int()).abs().max() <= 1
+    for n in (1, 2):
+        with contextlib.redirect_stdout(io.StringIO()):
+            hs, cnt = ge.dryrun_multichip(n)
+            hs_c, cnt_c = ge.dryrun_multichip(n, device="cpu")
+        np.testing.assert_array_equal(cnt, cnt_c)
+        assert max(err(a, b) for a, b in zip(hs, hs_c)) < 0.5
+
+
+def test_benchmark_scripts_on_the_card(tmp_path):
+    """bench_torch.py, the throughput script, both sweeps and serial
+    against gpu as a user runs them, on small files: exit 0, their JSON
+    and CSV, one fetch for a batch's estimates and one for its
+    composite group."""
+    import csv
+    import json
+    import subprocess
+    import sys
+
+    from pano_tpu_torch import io as tio
+
+    d = tmp_path / "pair"
+    d.mkdir()
+    paths = []
+    for i, im in enumerate(_strip_images(84, n=2)):
+        paths.append(str(d / f"a{i}.ppm"))
+        tio.write_ppm(paths[-1], im)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PANO_TPU_FORCE_CPU", "PANO_TPU_PROFILE")}
+
+    def run(*args):
+        r = subprocess.run([sys.executable, *args], capture_output=True,
+                           text=True, timeout=600, env=env, cwd=_REPO)
+        assert r.returncode == 0, r.stdout + r.stderr
+        return r.stdout
+
+    out = json.loads(run("bench_torch.py", *paths).strip().splitlines()[-1])
+    assert out["device_compute_ms"] > 0 and out["vs_baseline"] is None
+    out = json.loads(run("benchmark_throughput_torch.py", "--pairs", "4",
+                         *paths).strip().splitlines()[-1])
+    assert out["fallback_pairs"] == 0 and out["value"] > 0
+    run("benchmark_panorama_torch.py", "--dataset", str(d), "--devices",
+        "1,2", "--device-scale", "1.0", "--batch", "2", "--repeats", "1",
+        "--csv", str(tmp_path / "dev.csv"), "--plot",
+        str(tmp_path / "dev.png"))
+    rows = list(csv.DictReader(open(tmp_path / "dev.csv")))
+    assert [(r["devices"], r["est_fetches"], r["full_fetches"])
+            for r in rows] == [("1", "1", "2"), ("2", "1", "2")]
+    run("benchmark_panorama_torch.py", "--dataset", str(d), "--scales",
+        "0.5,1.0", "--repeats", "1", "--csv", str(tmp_path / "res.csv"),
+        "--plot", str(tmp_path / "res.png"))
+    assert len(list(csv.DictReader(open(tmp_path / "res.csv")))) == 2
+    run("benchmark_serial_parallel_torch.py", "--datasets", str(d),
+        "--repeats", "1", "--csv", str(tmp_path / "sp.csv"), "--plot",
+        str(tmp_path / "sp.png"))
+    row, = csv.DictReader(open(tmp_path / "sp.csv"))
+    assert float(row["gpu_s"]) > 0 and float(row["serial_s"]) > 0
+
+
+def test_pano_torch_sh_perf_on_the_card(tmp_path):
+    """pano_torch.sh build and perf gpu: the report names the overlay
+    pair's kernels with device time."""
+    import re
+    import subprocess
+
+    from pano_tpu_torch import io as tio
+
+    paths = []
+    for i, im in enumerate(_strip_images(85, n=2)):
+        paths.append(str(tmp_path / f"a{i}.ppm"))
+        tio.write_ppm(paths[-1], im)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PANO_TPU_FORCE_CPU", "PANO_TPU_PROFILE")}
+    env["PANO_TPU_TRACE_DIR"] = str(tmp_path / "trace")
+    script = os.path.join(_REPO, "pano_torch.sh")
+    r = subprocess.run(["bash", script, "build"], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0 and "kernels: " in r.stdout, r.stdout + r.stderr
+    r = subprocess.run(["bash", script, "perf", "gpu", *paths, "--out",
+                        str(tmp_path / "p.ppm")], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=str(tmp_path))
+    assert r.returncode == 0, r.stdout + r.stderr
+    report = open(tmp_path / "gpu_perf_report.txt").read()
+    for name in ("harris_scores_kernel", "gather_patches_kernel",
+                 "match_kernel", "warp_overlay_canvas_kernel"):
+        ms = [float(m.group(1)) for m in re.finditer(
+            rf"^  .*{name}.*?\s(\d+\.\d{{3}}) ms  x\d+$", report, re.M)]
+        assert ms and sum(ms) > 0, (name, report)
+    busy = re.search(r"device busy .*: (\d+\.\d{3}) ms$", report)
+    assert busy and float(busy.group(1)) > 0

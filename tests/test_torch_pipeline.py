@@ -225,6 +225,52 @@ def test_import_leaves_jax_out():
     assert out.returncode == 0, out.stdout + out.stderr
 
 
+# The port's scripts beside the JAX package's (the measuring and driver
+# layer): module name -> its file under the repository root.
+PORT_SCRIPTS = {
+    "bench_torch": "bench_torch.py",
+    "benchmark_throughput_torch": "benchmark_throughput_torch.py",
+    "benchmark_panorama_torch": "benchmark_panorama_torch.py",
+    "benchmark_serial_parallel_torch": "benchmark_serial_parallel_torch.py",
+    "graft_entry_torch": "graft_entry_torch.py",
+    "torch_trace_summary": "tools/torch_trace_summary.py",
+    "torch_batched_pairs_ab": "tools/torch_batched_pairs_ab.py",
+}
+
+
+def test_scripts_leave_jax_out():
+    """Each script of the port's measuring and driver layer imports
+    without jax, pano_tpu or __graft_entry__ (in a subprocess), and
+    names none of them in any import statement, the ones inside its
+    functions included."""
+    import ast
+    import os
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    banned = ("jax", "pano_tpu", "__graft_entry__")
+    for path in PORT_SCRIPTS.values():
+        for node in ast.walk(ast.parse(open(os.path.join(repo, path)).read())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            for name in names:
+                assert name.split(".")[0] not in banned, (path, name)
+    code = (
+        "import importlib, sys; "
+        f"sys.path[:0] = [{repo!r}, {os.path.join(repo, 'tools')!r}]; "
+        f"[importlib.import_module(m) for m in {sorted(PORT_SCRIPTS)!r}]; "
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'pano_tpu', '__graft_entry__')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
 def test_config_from_reference():
     assert TC.config_from_reference(pano_tpu.DEFAULT_CONFIG) == \
         pano_tpu_torch.DEFAULT_CONFIG
