@@ -74,7 +74,18 @@ failure.
    and the launches (K1 x6, K2 x6, K3 x3, K4b x3, K6 x3 for overlay and
    feather and x0 for multiband and gain, K4a and K5 x0); the warm wall
    time of overlay (median of 3) and peak memory, one call each for the
-   others. Then composite_global on the planted globals themselves:
+   others. After overlay, the chain's parts (its estimates, its
+   composite) and the chain call with each result dropped before the
+   next call and with the previous one held; then the panorama's host
+   fetch on the 3169x8356x3 strip canvas: timer.fetch_image's no-alias
+   check (a held result unchanged by the next fetch of other data, both
+   in page-locked memory, a reused block equal), and the turns pageable
+   (`.cpu().numpy()`, the parent's route), fetch_image, fetch_image,
+   pageable, staged, staged (a reused page-locked buffer copied out into
+   a fresh array, the design PERF.md weighs against fetch_image) under
+   each of: results dropped, the previous one held, every one kept;
+   5 calls a turn, each result equal to the canvas. Then
+   composite_global on the planted globals themselves:
    overlay exact against the scene, feather +-1, multiband +-2.
 10. auto: the strip in the order [2, 0, 3, 1], overlay: the
    "Auto-ordering" line places 4 of 4, the panorama against the scene
@@ -618,9 +629,10 @@ def scene_diff(pano, imgs, offsets, anchor, anchor_at):
 def chain_breakdown(torch, pipeline, cfg, strip_np, strip, reps=3) -> dict:
     """Median ms, over `reps` warm runs, of the chain's parts, serialized
     (synchronize around each) through the calls stitch_all_images_chain
-    makes: the adjacent estimates with their one host copy, the global
-    composite on those globals (its panorama's host copy included), and
-    that host copy alone."""
+    makes: the adjacent estimates with their one host copy and the global
+    composite on those globals (its panorama's fetch_image included);
+    then the whole chain call with each result dropped before the next
+    call, and with the previous result held across it."""
     stitcher = pipeline.get_pair_stitcher(cfg, True, "", DEVICE, None)
     times = {}
 
@@ -641,10 +653,111 @@ def chain_breakdown(torch, pipeline, cfg, strip_np, strip, reps=3) -> dict:
             gs.append(gs[-1] @ row[:9].reshape(3, 3).astype(np.float64))
         timed("composite", lambda: pipeline.composite_global(
             strip_np, strip, gs, cfg))
-        canvas = torch.empty(strip_shape() + (3,), dtype=torch.uint8,
-                             device=DEVICE)
-        timed("panorama_host_copy", lambda: pipeline._host_fetch(canvas))
-    return {k: round(float(np.median(v)), 3) for k, v in times.items()}
+
+    def chain():
+        with contextlib.redirect_stdout(io.StringIO()):
+            return pipeline.stitch_all_images(strip, cfg, True, "", DEVICE,
+                                              "chain")
+
+    for _ in range(reps):
+        timed("chain_call_dropped", chain)
+    held = None
+    for _ in range(reps):
+        held = timed("chain_call_held", chain)
+    del held
+    out = {k: round(float(np.median(v)), 3) for k, v in times.items()}
+    out.update({k + "_all": [round(x, 3) for x in v]
+                for k, v in times.items() if k.startswith("chain_call")})
+    return out
+
+
+# The panorama's device -> host copy in turns: the parent's pageable
+# route, fetch_image, and the staging design PERF.md weighs against it.
+FETCH_TURNS = ("pageable", "fetch_image", "fetch_image", "pageable",
+               "staged", "staged")
+# What a caller does with each result: drops it before the next call
+# (the CLI, serve), holds the previous one across the next call, or keeps
+# every one (each then needs a page-locked block of its own).
+FETCH_REGIMES = ("dropped", "held", "kept")
+
+
+def staged_fetch(torch, x, buffers: dict) -> np.ndarray:
+    """The alternative to fetch_image's fresh block: one page-locked
+    staging buffer per (shape, dtype, device), reused, and a copy out of
+    it into a fresh numpy array."""
+    key = (tuple(x.shape), x.dtype, x.device)
+    if key not in buffers:
+        buffers[key] = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    buf = buffers[key]
+    buf.copy_(x, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(x.device))
+    done.synchronize()
+    return buf.numpy().copy()
+
+
+def fetch_phase(torch, timer, canvas, smi, reps=5) -> None:
+    """The no-alias check of fetch_image at full size, then FETCH_TURNS
+    under each of FETCH_REGIMES: `reps` calls a turn, each result equal
+    to the pageable copy; per route its median ms per turn, every call's
+    ms, GB/s of the median, and the host allocations the regime made."""
+    want = canvas.cpu().numpy()
+    other = 255 - canvas
+    first = timer.fetch_image(canvas)
+    kept = first.copy()
+    second = timer.fetch_image(other)
+    check(torch.from_numpy(first).is_pinned()
+          and torch.from_numpy(second).is_pinned(),
+          "fetch_image: a panorama did not land in page-locked memory")
+    check(np.array_equal(first, want) and np.array_equal(first, kept)
+          and np.array_equal(second, other.cpu().numpy())
+          and not np.shares_memory(first, second),
+          "fetch_image: a held result was overwritten by the next fetch")
+    del first, second
+    third = timer.fetch_image(canvas)
+    check(np.array_equal(third, want), "fetch_image: reused block differs")
+    del third, other
+    log("panorama fetch no-alias", shape=tuple(canvas.shape),
+        mb=round(canvas.nbytes / 1e6, 3), held_unchanged=True,
+        reused_block_equal=True)
+
+    buffers = {}
+    routes = {"pageable": lambda: canvas.cpu().numpy(),
+              "fetch_image": lambda: timer.fetch_image(canvas),
+              "staged": lambda: staged_fetch(torch, canvas, buffers)}
+    for regime in FETCH_REGIMES:
+        # page-locked blocks PyTorch's caching host allocator has pinned
+        allocs0 = torch.cuda.host_memory_stats()["num_host_alloc"]
+        held = []
+        per_route = {}
+        for route in FETCH_TURNS:
+            ms = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = routes[route]()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                check(np.array_equal(got, want),
+                      f"panorama fetch {route}: differs from the canvas")
+                if regime != "dropped":
+                    held.append(got)
+                if regime == "held":
+                    del held[:-1]
+                del got
+            per_route.setdefault(route, []).append(ms)
+        allocs = torch.cuda.host_memory_stats()["num_host_alloc"] - allocs0
+        numbers = {}
+        for route, turns in per_route.items():
+            med = [round(float(np.median(t)), 3) for t in turns]
+            numbers[f"{route}_ms"] = med
+            numbers[f"{route}_gb_s"] = [round(canvas.nbytes / m / 1e6, 3)
+                                        for m in med]
+            numbers[f"{route}_ms_all"] = [[round(x, 3) for x in t]
+                                          for t in turns]
+        del held
+        log(f"panorama fetch {regime}", turns=FETCH_TURNS, reps=reps,
+            **numbers, host_allocs=allocs,
+            card=f"'{smi}'")
 
 
 def run_python(args, stdin=None, env=None):
@@ -1926,6 +2039,7 @@ def main() -> None:
 
     # 9. chain, through the entry point a user calls, on the strip
     from pano_tpu_torch import pipeline, stitch_all_images
+    from pano_tpu_torch import timer as pano_timer
 
     n = len(STRIP)
     steps = [f"Stitching image {i + 1} of {n}..." for i in range(1, n)]
@@ -1998,6 +2112,13 @@ def main() -> None:
             print("  " + lines[-1], flush=True)
             log("stages chain overlay", **chain_breakdown(
                 torch, pipeline, cfg, strip_np, strip))
+            canvas = torch.zeros(strip_shape() + (3,), dtype=torch.uint8,
+                                 device=DEVICE)
+            ch, cw = min(out.shape[0], canvas.shape[0]), \
+                min(out.shape[1], canvas.shape[1])
+            canvas[:ch, :cw] = torch.from_numpy(out[:ch, :cw]).to(DEVICE)
+            fetch_phase(torch, pano_timer, canvas, smi)
+            del canvas
 
         # The planted globals themselves: no estimate error.
         if not gain:

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 from typing import List, NamedTuple
 
-import numpy as np
 import torch
 
 from pano_tpu_torch.config import HarrisOptions
@@ -49,37 +48,13 @@ def bgr_to_gray_f32(img_u8: torch.Tensor) -> torch.Tensor:
     return torch.round(0.114 * b + 0.587 * g + 0.299 * r)
 
 
-def _zero_border(valid: torch.Tensor, k: int) -> torch.Tensor:
-    return torch.nn.functional.pad(valid, (k, k, k, k))
-
-
-def _separable_valid_zero_border(
-    img: torch.Tensor, k1d: np.ndarray
-) -> torch.Tensor:
-    """Correlate with outer(k1d, k1d): vertical pass over full columns,
-    then horizontal; the k-wide border is zero."""
-    ksize = k1d.shape[0]
-    k = ksize // 2
-    h, w = img.shape[-2], img.shape[-1]
-    acc = None
-    for i in range(ksize):
-        term = img[..., i:i + h - 2 * k, :] * float(k1d[i])
-        acc = term if acc is None else acc + term
-    out = None
-    for j in range(ksize):
-        term = acc[..., :, j:j + w - 2 * k] * float(k1d[j])
-        out = term if out is None else out + term
-    return _zero_border(out, k)
-
-
 def harris_response(gray: torch.Tensor, k: float) -> torch.Tensor:
     """R = det(M) - k*trace(M)^2 with the reference's zero borders."""
-    gx = _zero_border(conv_ops._tap_sum(gray, conv_ops.sobel_x_kernel()), 1)
-    gy = _zero_border(conv_ops._tap_sum(gray, conv_ops.sobel_y_kernel()), 1)
+    gx = conv_ops.conv2d_valid_zero_border(gray, conv_ops.sobel_x_kernel())
+    gy = conv_ops.conv2d_valid_zero_border(gray, conv_ops.sobel_y_kernel())
     prods = torch.stack([gx * gx, gy * gy, gx * gy])
-    sm = _separable_valid_zero_border(
-        prods, conv_ops.gaussian_kernel_1d(5, 1.0)
-    )
+    sm = conv_ops.conv2d_separable_valid_zero_border(
+        prods, conv_ops.gaussian_kernel_1d(5, 1.0))
     sxx, syy, sxy = sm[0], sm[1], sm[2]
     det = sxx * syy - sxy * sxy
     trace = sxx + syy

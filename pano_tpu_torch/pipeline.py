@@ -66,7 +66,8 @@ from pano_tpu_torch.ops import match as match_ops
 from pano_tpu_torch.ops import mip as mip_ops
 from pano_tpu_torch.ops import ransac as ransac_ops
 from pano_tpu_torch.ops import warp as warp_ops
-from pano_tpu_torch.timer import Timer, print_stage, synchronize
+from pano_tpu_torch.timer import (Timer, fetch_image, print_stage,
+                                  synchronize)
 
 try:
     import cv2  # type: ignore
@@ -175,9 +176,9 @@ def _to_device(img, device) -> torch.Tensor:
 
 
 def _host_fetch(t: torch.Tensor) -> np.ndarray:
-    """Device -> host copy of a multi-image path's result or stacked
-    estimates: a named indirection so that tests can count the copies a
-    path pays."""
+    """Device -> host copy of a multi-image path's stacked estimates or a
+    batch's composite group: a named indirection so that tests can count
+    the copies a path pays. Panoramas go through ``fetch_image``."""
     return t.cpu().numpy()
 
 
@@ -600,7 +601,7 @@ def fold_images(stitcher: PairStitcher, images: List, fast: bool,
             print_stage(_suffix("Image Stitching", timing_tag),
                         t_pair.elapsed())
         panorama = temp
-    result = _host_fetch(panorama)
+    result = fetch_image(panorama)
     if print_timing:
         print_stage(_suffix("Total Stitching Process", timing_tag),
                     t.elapsed())
@@ -938,4 +939,4 @@ def blend_global(anchor_img, t_mat, canvas_h, canvas_w, warps, config,
             weight[wy0:wy1, wx0:wx1] = new_w
     if _weights_out is not None:
         _weights_out.append(weight.cpu().numpy())
-    return _host_fetch(canvas)
+    return fetch_image(canvas)

@@ -1263,3 +1263,101 @@ def test_pano_torch_sh_perf_on_the_card(tmp_path):
         assert ms and sum(ms) > 0, (name, report)
     busy = re.search(r"device busy .*: (\d+\.\d{3}) ms$", report)
     assert busy and float(busy.group(1)) > 0
+
+
+def _big(shape, dtype, seed, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, dtype=dtype,
+                             device=device)
+    return torch.randn(shape, generator=g, device=device)
+
+
+@pytest.mark.parametrize("shape,dtype", [((3117, 4156, 3), torch.uint8),
+                                         ((3169, 8356), torch.float32)])
+def test_fetch_image_pinned_route(shape, dtype):
+    """A large CUDA tensor lands in page-locked memory, equal to the
+    pageable copy; a small one and a 0-d one take the plain copy."""
+    from pano_tpu_torch.timer import fetch_image
+
+    x = _big(shape, dtype, 90)
+    got = fetch_image(x)
+    assert isinstance(got, np.ndarray) and got.shape == shape
+    assert torch.from_numpy(got).is_pinned()
+    np.testing.assert_array_equal(got, x.cpu().numpy())
+    small = x[:8]
+    assert not torch.from_numpy(fetch_image(small)).is_pinned()
+    np.testing.assert_array_equal(fetch_image(small), small.cpu().numpy())
+    scalar = x[(0,) * x.dim()]
+    assert scalar.dim() == 0 and fetch_image(scalar) == scalar.item()
+
+
+def test_fetch_image_results_never_alias():
+    """A held result is not overwritten by a later fetch of the same
+    shape; a dropped one's block may be reused, and the next result is
+    still the new data."""
+    from pano_tpu_torch.timer import fetch_image
+
+    shape = (3117, 4156, 3)
+    first = fetch_image(_big(shape, torch.uint8, 91))
+    kept = first.copy()
+    second = fetch_image(_big(shape, torch.uint8, 92))
+    np.testing.assert_array_equal(first, kept)
+    assert not np.shares_memory(first, second)
+    want = _big(shape, torch.uint8, 93)
+    del first, second
+    np.testing.assert_array_equal(fetch_image(want), want.cpu().numpy())
+
+
+def test_fetch_image_fails_without_a_fallback(monkeypatch):
+    """A failed pin raises; there is no quiet pageable copy."""
+    from pano_tpu_torch import timer
+
+    real_empty = torch.empty
+
+    def no_pinning(*args, **kw):
+        if kw.get("pin_memory"):
+            raise RuntimeError("pinning refused")
+        return real_empty(*args, **kw)
+
+    monkeypatch.setattr(timer.torch, "empty", no_pinning)
+    with pytest.raises(RuntimeError, match="pinning refused"):
+        timer.fetch_image(_big((3117, 4156, 3), torch.uint8, 94))
+
+
+def test_fetch_image_on_a_card_that_is_not_current():
+    """A tensor on the second card, written by kernels still queued on
+    that card's stream while the first card is current: the copy and its
+    event are on the second card's stream, so the result is complete."""
+    from pano_tpu_torch.timer import fetch_image
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    with torch.cuda.device(0):
+        x = _big((3169, 8356), torch.float32, 95, device="cuda:1")
+        for _ in range(20):
+            x = x * 1.0001 + 0.5
+        got = fetch_image(x)
+    np.testing.assert_array_equal(got, x.cpu().numpy())
+
+
+@pytest.mark.parametrize("fn,kernel", [
+    ("conv2d_valid_zero_border", lambda c: c.sobel_x_kernel()),
+    ("conv2d_valid_zero_border", lambda c: c.sobel_y_kernel()),
+    ("conv2d_valid_zero_border", lambda c: c.gaussian_kernel(7, 1.5)),
+    ("conv2d_separable_valid_zero_border",
+     lambda c: c.gaussian_kernel_1d(5, 1.0)),
+    ("conv2d_separable_valid_zero_border",
+     lambda c: c.gaussian_kernel_1d(7, 1.5)),
+], ids=["sobel_x", "sobel_y", "gauss7", "sep_gauss5", "sep_gauss7"])
+@pytest.mark.parametrize("shape", [(33, 41), (3, 240, 320)])
+def test_conv_on_the_card_equals_cpu(shape, fn, kernel):
+    """The tap sums round each weight to f32 once on either device, and
+    eager elementwise kernels do not contract a * b + c."""
+    from pano_tpu_torch.ops import conv
+
+    img = torch.from_numpy(np.random.default_rng(96).normal(
+        scale=50.0, size=shape).astype(np.float32))
+    want = getattr(conv, fn)(img, kernel(conv))
+    got = getattr(conv, fn)(img.cuda(), kernel(conv))
+    assert torch.equal(got.cpu(), want)

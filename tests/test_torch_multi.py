@@ -493,18 +493,22 @@ def test_fold_total_prints_pair_lines(capsys):
     _pano_bar(got, staged)
 
 
-@pytest.mark.parametrize("mode,rows", [("chain", (2, 14)), ("auto", (3, 11))])
+@pytest.mark.parametrize("mode,rows", [("chain", (2, 14)), ("auto", (3, 11)),
+                                       ("fold", None)])
 def test_one_host_copy_for_all_estimates(monkeypatch, mode, rows):
-    """Chain fetches its n-1 estimate rows with one copy, auto its
-    n(n-1)/2 pair rows; the only other copy is the panorama."""
+    """Chain fetches its n-1 estimate rows with one _host_fetch, auto its
+    n(n-1)/2 pair rows, the fold none (tests/test_pipeline.py:404-423
+    counts one); the panorama is the one fetch_image, in every mode."""
     _, imgs = three_strip()
-    shapes = []
-    real = TP._host_fetch
-    monkeypatch.setattr(TP, "_host_fetch",
-                        lambda t: (shapes.append(tuple(t.shape)), real(t))[1])
+    seen = {"_host_fetch": [], "fetch_image": []}
+    for name, shapes in seen.items():
+        real = getattr(TP, name)
+        monkeypatch.setattr(TP, name, lambda t, real=real, shapes=shapes: (
+            shapes.append(tuple(t.shape)), real(t))[1])
     pano = TP.stitch_all_images(imgs, _configs()[1], print_timing=False,
                                 device="cpu", mode=mode, sampler=SAMPLER)
-    assert shapes == [rows, pano.shape]
+    assert seen["_host_fetch"] == ([rows] if rows else [])
+    assert seen["fetch_image"] == [pano.shape]
 
 
 def test_no_connected_pairs_and_unknown_mode(capsys):

@@ -215,19 +215,26 @@ def test_fold_on_one_device_is_the_tagged_staged_fold(runs, capsys):
     assert TIME.sub("X ms", runs("fold2")[1][2]) == out_s
 
 
-@pytest.mark.parametrize("mode,rows", [("chain", (3, 14)), ("auto", (6, 11))])
+@pytest.mark.parametrize("mode,rows", [("chain", (3, 14)), ("auto", (6, 11)),
+                                       ("fold", None)])
 def test_one_host_fetch_for_all_estimates(monkeypatch, mode, rows):
-    """tests/test_sharding.py:330-351: one fetch of every estimate row,
-    then only the panorama's."""
-    imgs = scene("chain4")
-    shapes = []
-    real = TP._host_fetch
-    monkeypatch.setattr(TP, "_host_fetch",
-                        lambda t: (shapes.append(tuple(t.shape)), real(t))[1])
-    fn = (TS.stitch_all_images_chain_sharded if mode == "chain"
-          else TS.stitch_all_images_auto_sharded)
-    pano = fn(imgs, PORT, mesh=cpu_mesh(2), print_timing=False)
-    assert shapes == [rows, pano.shape]
+    """tests/test_sharding.py:330-351: one _host_fetch of every estimate
+    row (none in the hyp-sharded fold); the panorama is the one
+    fetch_image."""
+    seen = {"_host_fetch": [], "fetch_image": []}
+    for name, shapes in seen.items():
+        real = getattr(TP, name)
+        monkeypatch.setattr(TP, name, lambda t, real=real, shapes=shapes: (
+            shapes.append(tuple(t.shape)), real(t))[1])
+    if mode == "fold":
+        pano = TS.stitch_all_images_sharded(scene("fold2"), PORT,
+                                            mesh=cpu_mesh(1, 2))
+    else:
+        fn = (TS.stitch_all_images_chain_sharded if mode == "chain"
+              else TS.stitch_all_images_auto_sharded)
+        pano = fn(scene("chain4"), PORT, mesh=cpu_mesh(2), print_timing=False)
+    assert seen["_host_fetch"] == ([rows] if rows else [])
+    assert seen["fetch_image"] == [pano.shape]
 
 
 def test_fallbacks_and_unknown_mode(capsys):
