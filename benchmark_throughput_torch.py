@@ -11,11 +11,12 @@ row into pinned host memory, and records an event; `retire` waits on
 that event, computes the canvas geometry on the host, enqueues the
 composite at the exact canvas and returns the panorama. The host keeps
 DEPTH dispatched pairs and retires the oldest, so the row's copy and the
-host's geometry overlap newer pairs' device work. RANSAC's
-`torch.linalg.eigh` also waits for the card inside every estimate, so
-the overlap is measured, not assumed (`host_syncs_per_pair`). Pairs
-whose estimate is below the inlier gate take the fallback ladder
-inside `retire`; they are counted and excluded from the rate.
+host's geometry overlap newer pairs' device work. Nothing inside an
+estimate waits for the card (RANSAC's refine takes kernel K7, not
+`torch.linalg.eigh`): `host_syncs_per_pair` counts 0, so a pair's only
+wait is retire's on the row's event. Pairs whose estimate is below the
+inlier gate take the fallback ladder inside `retire`; they are counted
+and excluded from the rate.
 
 The timed block ends with `torch.cuda.synchronize`, so the last pair's
 composite is inside it.
@@ -91,9 +92,10 @@ def throughput(stitcher, left, right, pairs: int = 30,
 
 def host_syncs_per_pair(stitcher, left, right, pairs: int = 3) -> float:
     """Synchronizing CUDA operations per `stitch_pair_fast`, as
-    torch.cuda.set_sync_debug_mode("warn") flags them (blocking copies to
-    the host, `.item()`, the error checks of torch.linalg). `retire`'s
-    wait on the row's event is not among them: it is one more per pair."""
+    torch.cuda.set_sync_debug_mode("warn") flags them (blocking copies
+    between host and card, `.item()`, the error checks of torch.linalg):
+    0 on the port's path. `retire`'s wait on the row's event is not among
+    them: it is the pair's one wait."""
     import torch
 
     torch.cuda.synchronize()

@@ -18,7 +18,7 @@ failure.
    right->left homography is that translation), and a strip of four
    4156x3117 crops of one 8356x3169 scene at the planted offsets
    (0, 0), (1400, 37), (2800, 15), (4200, 52).
-4. kernels: each of the seven kernels against its plain PyTorch version
+4. kernels: each of the eight kernels against its plain PyTorch version
    on the card, at the main path's shapes, with the tolerances below
    (every kernel bit-identical: torch.equal on every output, beside the
    tolerance checks); K1 also at the NMS windows 5, 7, 9 (one launch of
@@ -44,7 +44,11 @@ failure.
    of the strip's chain (image 2 into the canvas that holds image 1 and
    its weight ramp), planted and projective, overlay exact and feather
    within 1, the weight canvas exact; K6 updates in place, so each timed
-   run starts from a fresh copy made outside the timed region. Last,
+   run starts from a fresh copy made outside the timed region. K7 (the
+   refine's smallest eigenvector) runs on the planted pair's 9x9 normal
+   matrix as the main path hands it over, also held to float64
+   numpy.linalg.eigh (1 - |cos| <= 1e-5); its library call is
+   torch.linalg.eigh, timed with the host sync of its error check. Last,
    RANSAC's default table (JAX's randint, made on the card from a device
    n_valid) against the CPU's, and the time of one draw (draw_ms).
 5. main path (overlay): PairStitcher(DEFAULT_CONFIG, device="cuda")
@@ -52,7 +56,7 @@ failure.
    recovered H within 0.5 px of the planted one at the right image's
    corners, the canvas of the planted geometry, the overlap equal to the
    left image up to +-1, and each kernel launched by that call
-   (K1 x2, K2 x2, K3 x1, K4a x1, others x0); warm wall time on
+   (K1 x2, K2 x2, K3 x1, K7 x1, K4a x1, others x0); warm wall time on
    device-resident images (median of 5, synchronized on both sides) and
    peak device memory.
 6. feather path: the same with blend="feather" (K4b x1, K5 x1, K4a x0),
@@ -71,7 +75,7 @@ failure.
    row or column), the panorama against the scene over covered pixels
    (+-2; multiband +-3; the composed globals carry about three times a
    pair's sub-pixel error onto sharp edges) with the share above +-1,
-   and the launches (K1 x6, K2 x6, K3 x3, K4b x3, K6 x3 for overlay and
+   and the launches (K1 x6, K2 x6, K3 x3, K7 x3, K4b x3, K6 x3 for overlay and
    feather and x0 for multiband and gain, K4a and K5 x0); the warm wall
    time of overlay (median of 3) and peak memory, one call each for the
    others. After overlay, the chain's parts (its estimates, its
@@ -90,12 +94,12 @@ failure.
 10. auto: the strip in the order [2, 0, 3, 1], overlay: the
    "Auto-ordering" line places 4 of 4, the panorama against the scene
    over covered pixels within +-2 (the root goes in at its truncated
-   offset, as in the JAX package), K1 x4, K2 x4, K3 x6; one call's wall
+   offset, as in the JAX package), K1 x4, K2 x4, K3 x6, K7 x6; one call's wall
    time.
 11. fold: mode="fold", timing="total", overlay, on the strip: the
    "Stitching image i of 4..." and "Image Stitching" lines, the
    panorama covering the planted canvas (+-2 px per step), K1 x6, K2 x6,
-   K3 x3, K4a x3; one call's wall time.
+   K3 x3, K7 x3, K4a x3; one call's wall time.
 
 12. cli: the strip's four images and the planted pair written as .ppm
    with the port's io (its codec named on the `cli data` line), each
@@ -144,12 +148,13 @@ failure.
 
 14. the measuring and driver layer, on phase 3's pair at full size:
    (b) benchmark_throughput_torch.throughput at depth 1 and 3, 30 pairs,
-   in turns (1, 3, 3, 1): pairs/s, ms_per_pair, peak memory, K1-K4a x31,
-   no fallback pair; at each depth once more untimed through its loop
-   (`pipelined`), every retired panorama torch.equal to phase 5's; the
-   synchronizing operations a pair pays under
-   torch.cuda.set_sync_debug_mode; (a) then bench_torch's measurement
-   (`_measure`: `measure`'s JSON and its last panorama): bench.py's keys, K1-K4a x9 (warm-up, 5
+   in turns (1, 3, 3, 1): pairs/s, ms_per_pair, peak memory, K1-K4a and
+   K7 x31, no fallback pair; at each depth once more untimed through its
+   loop (`pipelined`), every retired panorama torch.equal to phase 5's;
+   the synchronizing operations a pair pays under
+   torch.cuda.set_sync_debug_mode, which must be 0; (a) then
+   bench_torch's measurement (`_measure`: `measure`'s JSON and its last
+   panorama): bench.py's keys, K1-K4a and K7 x9 (warm-up, 5
    timed calls, 3 traced), device_compute_ms between 0 and value (the
    busy share logged), the block's last panorama torch.equal to phase
    5's; and the loop at depth 1 once more after its profiler block;
@@ -162,15 +167,15 @@ failure.
    size; (f) `bash pano_torch.sh perf gpu` on the pair: exit 0, the
    report naming K1, K2, K3 (its three kernels) and K4a with non-zero
    device time; (e) graft_entry_torch.entry() on the card (K1 x2, K2 x2,
-   K3 x1) against the CPU's (inliers equal, H within 0.5 px, canvas
+   K3 x1, K7 x1) against the CPU's (inliers equal, H within 0.5 px, canvas
    within 1) and dryrun_multichip(1) (and the card count where there is
    more than one card) against the CPU's.
 
 15. The last three lines are the nvidia-smi line, a JSON object with
 the per-kernel numbers (each kernel's launches from the path that runs
-it: K1-K4a from phase 5, K4b and K5 from phase 6, K6 from phase 9's
+it: K1-K4a and K7 from phase 5, K4b and K5 from phase 6, K6 from phase 9's
 overlay chain, the batched K1 and K4b from phase 13's chain on the
-card), and {"ok": true, ...}. The whole run takes about five minutes of
+card), and {"ok": true, ...}. The whole run takes about six minutes of
 command time on an H100, the build included.
 """
 
@@ -214,6 +219,10 @@ KERNELS = {
            "pano_tpu/ops/pallas_compose.py:341"),
     "K6": ("compose_chain_canvas", "pano_tpu_torch/csrc/compose.cu",
            "pano_tpu/ops/pallas_compose.py:249"),
+    # No pallas_call: the refine's jnp.linalg.eigh, which XLA runs on the
+    # TPU as Jacobi sweeps.
+    "K7": ("smallest_eigvec9", "pano_tpu_torch/csrc/eigh9.cu",
+           "pano_tpu/ops/ransac.py:245"),
 }
 # The batched entries of K1 and K4b (the TPU kernels' batched grids, under
 # their custom_vmap rules), phase 13.
@@ -230,6 +239,7 @@ BATCHED = {
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12        # f32 outside the tensor cores
 INT8_TC_OPS_PER_S = 1979e12   # int8 tensor cores (K3's u8 product)
+FP64_OPS_PER_S = 34e12        # f64 outside the tensor cores (K7)
 
 # Operations per output pixel, counted from each kernel's arithmetic.
 # K1: gray 5, two Sobels 22, products 3, two 5-tap Gaussian passes over
@@ -250,6 +260,10 @@ FEATHER_OPS_PER_PX = 34
 # K6 feather: K5's without the left ramp (the weight is read), plus the
 #     max of the two weights.
 CHAIN_OPS_PER_PX = 27
+# K7, f64, per rotation that its data needs (the 36 pairs of 0..8 a
+#     sweep; the pad's 9 are skipped): its parameters 15, the columns of
+#     A and V (18 rows of 6) 108, the rows of A (9 of 6) 54, the diagonal 2.
+K7_OPS_PER_ROTATION = 179
 
 # Device times of other variants of a kernel's timed call, logged beside
 # its device_ms: K4b without the ramp alpha and without the weight, K5 and
@@ -1115,7 +1129,7 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
 
     n_pairs = n * (n - 1) // 2
     chain_want = {**none, "K1b": 1, "K2": 2 * (n - 1), "K3": n - 1,
-                  "K4bb": 1, "K6": n - 1}
+                  "K7": n - 1, "K4bb": 1, "K6": n - 1}
     torch.cuda.reset_peak_memory_stats()
     out, lines, launches_c, first = run_mode(
         torch, mods, chain_want, "sharded chain",
@@ -1148,8 +1162,8 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
     imgs_auto = [strip[i] for i in AUTO_ORDER]
     torch.cuda.reset_peak_memory_stats()
     out, lines, launches_a, wall = run_mode(
-        torch, mods, {**none, "K1b": 1, "K2": n, "K3": n_pairs, "K4bb": 1,
-                      "K6": n - 1},
+        torch, mods, {**none, "K1b": 1, "K2": n, "K3": n_pairs,
+                      "K7": n_pairs, "K4bb": 1, "K6": n - 1},
         "sharded auto", lambda: sharded("auto", mesh1, imgs_auto))
     peak = torch.cuda.max_memory_allocated() / 2**20
     order = [x for x in lines if x.startswith("Auto-ordering")]
@@ -1166,7 +1180,7 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
     torch.cuda.reset_peak_memory_stats()
     out, lines, launches_f, wall = run_mode(
         torch, mods, {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1),
-                      "K3": n - 1, "K4a": n - 1},
+                      "K3": n - 1, "K7": n - 1, "K4a": n - 1},
         "sharded fold", lambda: sharded("fold", mesh1))
     peak = torch.cuda.max_memory_allocated() / 2**20
     check_lines(lines, [x for step in steps for x in (step, *fold_stages)]
@@ -1201,7 +1215,7 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
     try:
         out, lines, launches_h, wall = run_mode(
             torch, mods, {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1),
-                          "K3": n - 1, "K4a": n - 1},
+                          "K3": n - 1, "K7": n - 1, "K4a": n - 1},
             "sharded fold hyp 4", lambda: sharded("fold", mesh_h))
     finally:
         pipeline.PairStitcher.composite = real_composite
@@ -1243,8 +1257,8 @@ def shard_phase(torch, mods, none, timer, res, smi, strip, strip_np, pair,
     peak = torch.cuda.max_memory_allocated() / 2**20
     launches_p = {k: getattr(mod, attr) for k, (mod, attr) in mods.items()}
     groups = launches_p["K4bb"]
-    check(launches_p == {**none, "K1b": 1, "K2": 8, "K3": 4, "K4bb": groups,
-                         "K5": 4} and 1 <= groups <= 4,
+    check(launches_p == {**none, "K1b": 1, "K2": 8, "K3": 4, "K7": 4,
+                         "K4bb": groups, "K5": 4} and 1 <= groups <= 4,
           f"batched pairs: kernel launches {launches_p}")
     hs = [r[:9].cpu().numpy().astype(np.float64).reshape(3, 3)
           for r in singles]
@@ -1378,8 +1392,9 @@ def driver_phase(torch, mods, none, smi, pair, pair_np, pano_ref,
             peak_mem_mib=round(peak, 1),
             retired_checked_equal_to_phase5=retired_checked,
             launches=launches, card=f"'{smi}'")
-    log("throughput syncs", flagged_syncs_per_pair=bt.host_syncs_per_pair(
-        st, left, right, 3))
+    syncs = bt.host_syncs_per_pair(st, left, right, 3)
+    check(syncs == 0, f"throughput: {syncs} flagged host syncs a pair")
+    log("throughput syncs", flagged_syncs_per_pair=syncs)
 
     # (a) the headline bench: warm-up, 5 timed calls, 3 traced ones (after
     # (b), so that no profiler run precedes the loop's timed runs)
@@ -1502,7 +1517,7 @@ def driver_phase(torch, mods, none, smi, pair, pair_np, pano_ref,
     fn, args = ge.entry()
     h, count, canvas = fn(*args)
     launches = counts()
-    check(launches == {**none, "K1": 2, "K2": 2, "K3": 1},
+    check(launches == {**none, "K1": 2, "K2": 2, "K3": 1, "K7": 1},
           f"entry: kernel launches {launches}")
     fn_c, args_c = ge.entry("cpu")
     h_c, count_c, canvas_c = fn_c(*args_c)
@@ -1537,7 +1552,7 @@ def driver_phase(torch, mods, none, smi, pair, pair_np, pano_ref,
             err = max(err, float(np.abs(pa[:, :2] / pa[:, 2:]
                                         - pb[:, :2] / pb[:, 2:]).max()))
         want = {**none, "K1b": n_data, "K2": 2 * n_data, "K3": n_data,
-                "K4bb": 1, "K5": n_data} if n == 1 else None
+                "K7": n_data, "K4bb": 1, "K5": n_data} if n == 1 else None
         check(np.array_equal(cnt, cnt_c) and err < 0.5
               and (want is None or launches == want),
               f"dryrun_multichip({n}): inliers {cnt} / {cnt_c} (cpu), H off "
@@ -1580,8 +1595,8 @@ def main() -> None:
 
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.ops import (
-        cuda_compose, cuda_gather, cuda_harris, cuda_match, cuda_warp,
-        harris, match,
+        cuda_compose, cuda_eigh, cuda_gather, cuda_harris, cuda_match,
+        cuda_warp, harris, match,
     )
     from pano_tpu_torch.ops import warp as warp_ops
     from pano_tpu_torch.pipeline import fused_canvas_geometry
@@ -1889,6 +1904,47 @@ def main() -> None:
         res[k]["max_abs_err"] = max(errs[k])
         log(f"{k} {KERNELS[k][0]}", **res[k])
 
+    # K7: the refine's 9x9 normal matrix of the planted pair, as the main
+    # path hands it to the kernel (recorded around the wrapper through one
+    # estimate). Its library call is torch.linalg.eigh, timed with the host
+    # sync of its error check: the end event is recorded after the call
+    # returns, so the sync is inside the window.
+    ata_seen = []
+    k7 = cuda_eigh.smallest_eigvec9
+
+    def record(ata):
+        ata_seen.append(ata.clone())
+        return k7(ata)
+
+    cuda_eigh.smallest_eigvec9 = record
+    try:
+        PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                     device=DEVICE)._fused_estimate_impl(left, right)
+    finally:
+        cuda_eigh.smallest_eigvec9 = k7
+    ata, = ata_seen
+    got = cuda_eigh.smallest_eigvec9(ata)
+    want = cuda_eigh.smallest_eigvec9_plain(ata)
+    check(torch.equal(got, want), "K7 differs from the plain version")
+    v64 = np.linalg.eigh(ata.double().cpu().numpy())[1][:, 0]
+    align = 1.0 - abs(float(got.double().cpu().numpy() @ v64))
+    check(align <= 1e-5, f"K7: 1 - |v . v_f64| = {align}")
+    res["K7"] = dict(
+        max_abs_err=float((got - want).abs().max()),
+        ms=timer(lambda: cuda_eigh.smallest_eigvec9(ata)),
+        plain_ms=timer(lambda: cuda_eigh.smallest_eigvec9_plain(ata)),
+        library_ms=timer(lambda: torch.linalg.eigh(ata)),
+        # The matrix in, the vector out; the f64 rotations its data needs.
+        bound=bound(nbytes(ata, got),
+                    cuda_eigh.SWEEPS * 36 * K7_OPS_PER_ROTATION,
+                    FP64_OPS_PER_S),
+    )
+    device_runs.append(("K7", "device_ms", functools.partial(
+        cuda_eigh.smallest_eigvec9, ata), None))
+    log("K7 smallest_eigvec9", shape=tuple(ata.shape),
+        sweeps=cuda_eigh.SWEEPS, one_minus_cos_vs_f64=align, **res["K7"])
+    del ata_seen, got, want
+
     # Device time of each kernel, taken after every `ms` above so that
     # those stay as earlier versions of this script took them: the card
     # warmed first, and a spin before each run, so that the wrapper's
@@ -1934,10 +1990,11 @@ def main() -> None:
             "K4b": (cuda_warp, "packed_launches"),
             "K5": (cuda_compose, "launches"),
             "K6": (cuda_compose, "chain_launches"),
+            "K7": (cuda_eigh, "launches"),
             "K1b": (cuda_harris, "batched_launches"),
             "K4bb": (cuda_warp, "batched_packed_launches")}
     none = dict.fromkeys(mods, 0)
-    front = {**none, "K1": 2, "K2": 2, "K3": 1}
+    front = {**none, "K1": 2, "K2": 2, "K3": 1, "K7": 1}
 
     def stitch_config(blend, gain=False):
         cfg = DEFAULT_CONFIG.replace(stitch=dataclasses.replace(
@@ -2073,7 +2130,7 @@ def main() -> None:
             DEFAULT_CONFIG.stitch, blend=blend, gain_compensation=gain))
         k6 = n - 1 if blend != "multiband" and not gain else 0
         want = {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
-                "K4b": n - 1, "K6": k6}
+                "K7": n - 1, "K4b": n - 1, "K6": k6}
 
         def call():
             return stitch_all_images(strip, cfg, True, "", DEVICE, "chain")
@@ -2146,8 +2203,8 @@ def main() -> None:
     with recorded_globals(pipeline) as seen:
         out, lines, launches_a, wall = run_mode(
             torch, mods,
-            {**none, "K1": n, "K2": n, "K3": n_pairs, "K4b": n - 1,
-             "K6": n - 1},
+            {**none, "K1": n, "K2": n, "K3": n_pairs, "K7": n_pairs,
+             "K4b": n - 1, "K6": n - 1},
             "auto",
             lambda: stitch_all_images(imgs_auto, DEFAULT_CONFIG, True, "",
                                       DEVICE, "auto"))
@@ -2169,7 +2226,7 @@ def main() -> None:
     out, lines, launches_fold, wall = run_mode(
         torch, mods,
         {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
-         "K4a": n - 1},
+         "K7": n - 1, "K4a": n - 1},
         "fold",
         lambda: stitch_all_images(strip, DEFAULT_CONFIG, True, "", DEVICE,
                                   "fold", "total"))

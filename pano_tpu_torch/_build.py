@@ -76,6 +76,8 @@ SIGNATURES = {
     # canvas, weight_canvas, win_rgb, w_win, canvas_w, wy0, wx0, win_h,
     # win_w, feather, stream
     "pano_compose_chain_canvas": [_V] * 4 + [_I] * 6 + [_V],
+    # ata, out, sweeps, stream
+    "pano_smallest_eigvec9": [_V, _V, _I, _V],
 }
 
 _lib = None

@@ -4,9 +4,12 @@ Counterpart of ``pano_tpu/ops/ransac.py``: every hypothesis of the JAX
 package's ``vmap`` is a row of a leading batch dimension here. Hartley-
 normalized 4-point DLT by unrolled Gauss-Jordan, one broadcast scoring
 pass over (N, M), argmax, then the degeneracy guard and the masked
-least-squares refine through a 9x9 eigendecomposition. Everything is
-float32; the package turns TF32 off, so the small matrix products are
-true fp32.
+least-squares refine through the smallest eigenvector of a 9x9 normal
+matrix (kernel K7, ``ops/cuda_eigh.py``). Everything is float32; the
+package turns TF32 off, so the small matrix products are true fp32.
+Nothing here reads a device value on the host: constants are made on the
+device, gathers by a device index are ``index_select``, and the refine's
+eigenvector comes from K7, so an estimate is enqueued whole.
 
 Sampling: ``ransac_best_hypothesis`` takes a ``sampler(n_valid) -> (N, 4)
 int64`` table of indices into the compacted valid range. The default is
@@ -28,6 +31,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from pano_tpu_torch.config import RansacOptions
+from pano_tpu_torch.ops import cuda_eigh
 
 Sampler = Callable[[torch.Tensor], torch.Tensor]
 
@@ -50,8 +54,7 @@ def _normalization_transform(
     mean = (pts * m[..., None]).sum(-2) / cnt[..., None]
     d = torch.sqrt(((pts - mean[..., None, :]) ** 2).sum(-1))
     mean_d = (d * m).sum(-1) / cnt
-    s = torch.sqrt(torch.tensor(2.0, dtype=pts.dtype, device=pts.device)) \
-        / torch.clamp(mean_d, min=1e-8)
+    s = _sqrt2(pts.dtype, pts.device) / torch.clamp(mean_d, min=1e-8)
     zero = torch.zeros_like(s)
     one = torch.ones_like(s)
     rows = [
@@ -60,6 +63,15 @@ def _normalization_transform(
         torch.stack([zero, zero, one], -1),
     ]
     return torch.stack(rows, -2)
+
+
+@functools.lru_cache(maxsize=16)
+def _sqrt2(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """sqrt(2) as a () tensor on `device`, made there once (a tensor from
+    a Python number would be a blocking upload at every call). A tensor
+    numerator keeps the true division: `float / tensor` is a reciprocal
+    times the number, which rounds differently."""
+    return torch.full((), 2.0, dtype=dtype, device=device).sqrt()
 
 
 def inv3x3(m: torch.Tensor) -> torch.Tensor:
@@ -93,9 +105,8 @@ def _solve8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     Gauss-Jordan with partial pivoting. Singular systems give inf/nan."""
     m = torch.cat([a, b[..., None]], dim=-1)               # (..., 8, 9)
     rows = torch.arange(8, device=a.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=a.dtype, device=a.device)
     for col in range(8):
-        mag = torch.where(rows >= col, m[..., :, col].abs(), neg_inf)
+        mag = torch.where(rows >= col, m[..., :, col].abs(), float("-inf"))
         piv = torch.argmax(mag, dim=-1)                    # (...,)
         is_piv = (rows == piv[..., None])[..., None]       # (..., 8, 1)
         row_c = m[..., col, :]
@@ -170,7 +181,9 @@ def _inlier_mask(h, src, dst, valid, thresh: float) -> torch.Tensor:
 
 def refine_homography(src, dst, mask) -> torch.Tensor:
     """Least-squares DLT over all masked correspondences: the eigenvector
-    of A^T A (9x9) with the smallest eigenvalue."""
+    of A^T A (9x9) with the smallest eigenvalue, by K7's Jacobi sweeps
+    (``cuda_eigh.smallest_eigvec9``; the JAX package's ``eigh`` is Jacobi
+    on the TPU too), with no host sync."""
     t_src = _normalization_transform(src, mask)
     t_dst = _normalization_transform(dst, mask)
     sn = _apply_similarity(t_src, src)
@@ -187,8 +200,7 @@ def refine_homography(src, dst, mask) -> torch.Tensor:
         [zeros, zeros, zeros, -x, -y, -ones, v * x, v * y, v], -1
     ) * m
     a = torch.cat([r1, r2], 0)                              # (2M, 9)
-    _, vecs = torch.linalg.eigh(a.T @ a)
-    h = vecs[:, 0].reshape(3, 3)
+    h = cuda_eigh.smallest_eigvec9(a.T @ a).reshape(3, 3)   # K7
     h_full = inv3x3(t_dst) @ h @ t_src
     return h_full / h_full[2, 2]
 
@@ -203,10 +215,10 @@ _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
 
-def _threefry2x32(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
-    """The Threefry-2x32 hash of the counter pairs (x0, x1) under the key
-    (k0, k1): 20 rounds, a key injection after every 4
-    (jax._src.prng._threefry2x32_lowering)."""
+def _threefry2x32(k0: int, k1: int, x0, x1):
+    """The Threefry-2x32 hash of the counter pairs (x0, x1), int64 tensors
+    or Python integers, under the key (k0, k1): 20 rounds, a key injection
+    after every 4 (jax._src.prng._threefry2x32_lowering)."""
     ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
     x0 = (x0 + ks[0]) & _M32
     x1 = (x1 + ks[1]) & _M32
@@ -229,10 +241,9 @@ def _random_bits32(key: Tuple[int, int], n: int, device) -> torch.Tensor:
 
 
 def _split(key: Tuple[int, int]):
-    """split(key) into two keys: the hash of the counters 0 and 1."""
-    b0, b1 = _threefry2x32(*key, torch.zeros(2, dtype=torch.int64),
-                           torch.arange(2, dtype=torch.int64))
-    return ((int(b0[0]), int(b1[0])), (int(b0[1]), int(b1[1])))
+    """split(key) into two keys: the hash of the counters 0 and 1 (in
+    Python integers: a key never touches a device)."""
+    return tuple(_threefry2x32(*key, 0, i) for i in range(2))
 
 
 def prng_key(seed: int) -> Tuple[int, int]:
@@ -247,9 +258,7 @@ def prng_key(seed: int) -> Tuple[int, int]:
 def fold_in(key: Tuple[int, int], data: int) -> Tuple[int, int]:
     """jax.random.fold_in(key, data) for an int32 `data`: the hash of the
     counter pair (0, data) under the key."""
-    b0, b1 = _threefry2x32(*key, torch.zeros(1, dtype=torch.int64),
-                           torch.tensor([data & _M32], dtype=torch.int64))
-    return int(b0[0]), int(b1[0])
+    return _threefry2x32(*key, 0, data & _M32)
 
 
 @functools.lru_cache(maxsize=16)
@@ -321,10 +330,20 @@ def ransac_best_hypothesis(
             f"sampler returned {tuple(idx.shape)}, want "
             f"{(num_iterations, num_samples)}"
         )
-    hs = homography_from_4pts(pts_src[idx], pts_dst[idx])  # (N, 3, 3)
+    flat = idx.reshape(-1)
+    hs = homography_from_4pts(
+        pts_src.index_select(0, flat).reshape(idx.shape + (2,)),
+        pts_dst.index_select(0, flat).reshape(idx.shape + (2,)),
+    )                                                       # (N, 3, 3)
     counts = _score_hypotheses(hs, pts_src, pts_dst, valid, distance_threshold)
     best = torch.argmax(counts)
-    return hs[best], counts[best]
+    return take(hs, best), take(counts, best)
+
+
+def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a () index tensor, on the device: indexing by a 0-d
+    tensor reads it on the host (`.item()`)."""
+    return x.index_select(0, i.reshape(1))[0]
 
 
 def ransac_homography(

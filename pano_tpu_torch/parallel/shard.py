@@ -209,8 +209,9 @@ def _hyp_search(mesh: Mesh, data: int, pts_q, pts_t, valid, r_opts,
         counts.append(bc.to(home))
     all_h, all_c = torch.stack(hs), torch.stack(counts)
     win = torch.argmax(all_c)
-    return ransac_ops.finalize_ransac(all_h[win], all_c[win], pts_q, pts_t,
-                                      valid, r_opts)
+    return ransac_ops.finalize_ransac(
+        ransac_ops.take(all_h, win), ransac_ops.take(all_c, win), pts_q,
+        pts_t, valid, r_opts)
 
 
 def batched_stitch_step(

@@ -13,7 +13,8 @@ Fused path (``stitch_pair_fast``):
 1. Harris on both images (kernel K1), top-K keypoints.
 2. 5x5 patch descriptors (K2), streaming argmin-SSD matching with ratio
    test and cross-check (K3), right image as query, left as train.
-3. RANSAC with least-squares refine (batched torch code).
+3. RANSAC with least-squares refine (batched torch code; the refine's
+   9x9 eigenvector by kernel K7). Steps 1-3 read nothing on the host.
 4. ONE host sync on the 14-float estimate row
    [H (9), inlier_count, num_matches, ok, match_count, 0].
 5. Canvas geometry on the host with the fused path's own f32 formulas,
@@ -214,8 +215,9 @@ class PairStitcher:
         return _to_device(img, self.device)
 
     def _fused_estimate_impl(self, left: torch.Tensor, right: torch.Tensor):
-        """detect x2 -> match -> RANSAC, no host sync. Returns (row (14,)
-        f32 on the device, (pts_q, pts_t, valid))."""
+        """detect x2 -> match -> RANSAC, no host sync (the refine takes K7,
+        not torch.linalg.eigh). Returns (row (14,) f32 on the device,
+        (pts_q, pts_t, valid))."""
         h_opts = self.config.harris
         kps_l = harris_ops.harris_detect(left, h_opts)
         kps_r = harris_ops.harris_detect(right, h_opts)
@@ -325,7 +327,9 @@ class PairStitcher:
         waiting for either. On the GPU the row goes into pinned host
         memory with a non-blocking copy and an event recorded after it,
         so that several pairs can be in flight (benchmark_throughput_torch.py);
-        on the CPU the row is already on the host."""
+        on the CPU the row is already on the host. Images already on the
+        card enqueue with no host sync; host images are uploaded first,
+        a blocking copy each."""
         left_d = self._to_device(left)
         right_d = self._to_device(right)
         row_dev, pts = self._fused_estimate_impl(left_d, right_d)

@@ -1088,9 +1088,9 @@ def test_throughput_loop_on_the_card(depth):
     for (pano, row), (want_pano, want_row) in zip(got, want * 2):
         assert torch.equal(pano, want_pano)
         np.testing.assert_array_equal(row, want_row)
-    # RANSAC's eigh waits for the card at least once a pair.
+    # Nothing waits for the card inside a pair but retire's event.
     syncs = bt.host_syncs_per_pair(st, *pairs[0], 2)
-    assert syncs >= 1 and syncs == int(syncs)
+    assert syncs == 0
 
 
 def test_bench_measure_on_the_card():
@@ -1361,3 +1361,164 @@ def test_conv_on_the_card_equals_cpu(shape, fn, kernel):
     want = getattr(conv, fn)(img, kernel(conv))
     got = getattr(conv, fn)(img.cuda(), kernel(conv))
     assert torch.equal(got.cpu(), want)
+
+
+# --- K7 and the estimate paths with no host sync ----------------------------
+
+_EIGH_CASES = ("spd0", "spd1", "spd2", "spd3", "spd4", "spd5", "spd_small",
+               "spd_large", "graded0", "graded1", "diagonal", "tied",
+               "indefinite", "zero")
+
+
+def _eigh_matrix(name):
+    """tests/test_torch_eigh.py's kinds of matrix, made without JAX: random
+    SPD at three scales, graded (1e-4 and 0.1 to 1e3), diagonal, a tied
+    smallest pair, an indefinite symmetric one and zero."""
+    if name.startswith("spd"):
+        seed, scale = {"spd_small": (11, 1e-3), "spd_large": (12, 1e3)
+                       }.get(name) or (int(name[3:]), 1)
+        a = np.random.default_rng(seed).standard_normal((9, 9)) * scale
+        return (a @ a.T).astype(np.float32)
+    if name in ("graded0", "graded1", "tied"):
+        seed = {"graded0": 20, "graded1": 21, "tied": 40}[name]
+        q, _ = np.linalg.qr(np.random.default_rng(seed).standard_normal((9, 9)))
+        lam = (np.array([0.25, 0.25, 1, 2, 3, 4, 5, 6, 7]) if name == "tied"
+               else np.r_[1e-4, np.logspace(-1, 3, 8)])
+        return ((q * lam) @ q.T).astype(np.float32)
+    if name == "diagonal":
+        return np.diag(np.random.default_rng(30).uniform(0.5, 5.0, 9)
+                       ).astype(np.float32)
+    if name == "indefinite":
+        a = np.random.default_rng(50).standard_normal((9, 9))
+        return (a + a.T).astype(np.float32)
+    return np.zeros((9, 9), np.float32)
+
+
+@pytest.mark.parametrize("name", _EIGH_CASES)
+def test_eigh9_kernel_vs_plain(name):
+    """K7 bit-identical to its plain version (f64 rotations in the same
+    order under -fmad=false), one launch, and an eigenvector of the
+    smallest eigenvalue."""
+    from pano_tpu_torch.ops import cuda_eigh
+
+    a = torch.from_numpy(_eigh_matrix(name)).cuda()
+    before = cuda_eigh.launches
+    got = cuda_eigh.smallest_eigvec9(a)
+    assert cuda_eigh.launches == before + 1
+    assert got.device == a.device and got.dtype == torch.float32
+    assert torch.equal(got, cuda_eigh.smallest_eigvec9_plain(a))
+    a64, v = a.cpu().double().numpy(), got.cpu().double().numpy()
+    w = np.linalg.eigvalsh(a64)
+    assert np.linalg.norm(a64 @ v - w[0] * v) <= 1e-5 * max(
+        np.linalg.norm(a64, 2), 1e-30)
+
+
+def _planted_normal_matrices():
+    """The refine's A^T A of chip_smoke.py's planted 4156x3117 pair and of
+    three small pairs, as the card's estimate hands them to K7."""
+    import sys
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+    from pano_tpu_torch.ops import cuda_eigh
+
+    if _REPO not in sys.path:
+        sys.path.insert(0, _REPO)
+    import chip_smoke
+
+    seen = []
+    kernel = cuda_eigh.smallest_eigvec9
+
+    def record(ata):
+        seen.append(ata.clone())
+        return kernel(ata)
+
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    pairs = [tuple(torch.from_numpy(im).cuda()
+                   for im in chip_smoke.synthetic_pair(0))]
+    pairs += _shifted_pairs(97)
+    cuda_eigh.smallest_eigvec9 = record
+    try:
+        for left, right in pairs:
+            st._fused_estimate_impl(left, right)
+    finally:
+        cuda_eigh.smallest_eigvec9 = kernel
+    assert len(seen) == len(pairs)
+    return seen
+
+
+def test_eigh9_kernel_on_the_refines_normal_matrices():
+    from pano_tpu_torch.ops import cuda_eigh
+
+    for ata in _planted_normal_matrices():
+        got = cuda_eigh.smallest_eigvec9(ata)
+        assert torch.equal(got, cuda_eigh.smallest_eigvec9_plain(ata))
+        a64 = ata.cpu().double().numpy()
+        want = np.linalg.eigh(a64)[1][:, 0]
+        assert 1.0 - abs(got.cpu().double().numpy() @ want) <= 1e-5
+
+
+def _flagged_syncs(fn):
+    """fn() once to warm its per-device tables, then again under
+    torch.cuda.set_sync_debug_mode("warn"): where each synchronizing CUDA
+    operation it ran was called (file:line), and its result."""
+    import warnings
+
+    fn()
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+    return [f"{w.filename}:{w.lineno}" for w in caught
+            if "called a synchronizing CUDA operation" in str(w.message)], out
+
+
+@pytest.mark.parametrize("path", ["dispatch", "chain_pending",
+                                  "auto_pair_rows", "hyp_search",
+                                  "batched"])
+def test_estimate_paths_do_not_sync_on_the_card(path):
+    """Every path that estimates a pair enqueues its whole estimate with no
+    host sync before its one fetch: the pair's dispatch, the chain's
+    pending estimates, auto's detection and pair rows, the hyp-sharded
+    search on a mesh of the card, the batched estimate."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, pipeline
+    from pano_tpu_torch.parallel import shard
+
+    cfg = DEFAULT_CONFIG
+    imgs = [torch.from_numpy(im).cuda() for im in _strip_images(98)]
+    st = PairStitcher(cfg, print_timing=False, device="cuda")
+    if path == "dispatch":
+        def fn():
+            return st.dispatch(imgs[0], imgs[1]).row
+    elif path == "chain_pending":
+        def fn():
+            return torch.stack([st._fused_estimate_impl(imgs[i - 1],
+                                                        imgs[i])[0]
+                                for i in range(1, len(imgs))])
+    elif path == "auto_pair_rows":
+        def fn():
+            feats = [pipeline.auto_detect(d, cfg.harris) for d in imgs]
+            return torch.stack([
+                pipeline.auto_pair_row(feats[j], feats[i], cfg)
+                for i in range(len(imgs)) for j in range(i + 1, len(imgs))])
+    elif path == "hyp_search":
+        mesh = shard.make_mesh(1, 2, devices=[torch.device("cuda")] * 2)
+        _, (pq, pt, v) = st._fused_estimate_impl(imgs[0], imgs[1])
+
+        def fn():
+            return shard._hyp_search(mesh, 0, pq, pt, v, cfg.ransac,
+                                     cfg.ransac.num_iterations // 2).H
+    else:
+        mesh = shard.make_mesh(1, 1)
+
+        def fn():
+            return shard.fused_estimate_batched(
+                torch.stack(imgs[:3]), torch.stack(imgs[1:]), cfg, mesh)[0]
+    syncs, out = _flagged_syncs(fn)
+    assert syncs == []
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())

@@ -172,3 +172,99 @@ def test_default_sampler_is_seeded_and_in_range():
     assert int(a.min()) >= 0 and int(a.max()) < 17
     z = s1(torch.tensor(0, dtype=torch.int32))
     assert int(z.max()) == 0
+
+
+@pytest.mark.parametrize("seed,m,n_valid,outliers",
+                         [(36, 300, 250, 60), (37, 800, 700, 200),
+                          (38, 60, 40, 0)])
+def test_refine_homography_matches_jax(seed, m, n_valid, outliers):
+    """The refine alone (K7's plain version in place of eigh) on the
+    inliers of the true H: test_ransac_homography_matches_jax's bar."""
+    rng = np.random.default_rng(seed)
+    src, dst, valid, h_true = _correspondences(rng, m, n_valid, outliers)
+    mask = valid & (np.arange(m) >= outliers)
+    hj = np.asarray(JR.refine_homography(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(mask)))
+    ht = TR.refine_homography(torch.from_numpy(src), torch.from_numpy(dst),
+                              torch.from_numpy(mask)).numpy()
+    np.testing.assert_allclose(ht, hj, rtol=1e-4, atol=1e-7)
+    np.testing.assert_allclose(ht, h_true, rtol=0.02, atol=0.5)
+
+
+def _host_reads(fn):
+    """The operations of fn() that bring a device value to the host
+    (`.item()`, a 0-d tensor index, int() or bool() of a tensor) or that
+    need one (torch.linalg.eigh's error check). A blocking upload shows
+    only on the card (tests/test_torch_cuda.py counts those)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Spy(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = str(func)
+            if "_local_scalar_dense" in name or "_linalg_eigh" in name:
+                seen.append(name)
+            return func(*args, **(kwargs or {}))
+
+    fn()   # tables made once per device (the sampler's bits, K7's frames)
+    with Spy():
+        out = fn()
+    return seen, out
+
+
+def _estimate_inputs():
+    """A small config and tests/test_torch_pipeline.py's translated pair:
+    noise with bright 6x6 squares, the right image 48 px along."""
+    from pano_tpu_torch import config as TC
+
+    r = np.random.default_rng(0)
+    base = r.integers(0, 60, (128, 208, 3)).astype(np.uint8)
+    for _ in range(max(60, 128 * 208 // 150)):
+        y, x = r.integers(2, 128 - 10), r.integers(2, 208 - 10)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    cfg = TC.DEFAULT_CONFIG.replace(
+        harris=TC.HarrisOptions(max_keypoints=512),
+        ransac=TC.RansacOptions(num_iterations=500))
+    return (cfg, torch.from_numpy(base[:, 48:].copy()),
+            torch.from_numpy(base[:, :160].copy()))
+
+
+@pytest.mark.parametrize("path", ["fused_estimate", "hyp_search",
+                                  "auto_pair_row", "batched"])
+def test_estimate_paths_read_nothing_on_the_host(path):
+    """Every estimate path runs from its inputs to its row with no value
+    read on the host: on the card, nothing waits before the row's one
+    fetch."""
+    from pano_tpu_torch import pipeline
+    from pano_tpu_torch.parallel import shard
+
+    cfg, left, right = _estimate_inputs()
+    st = pipeline.PairStitcher(cfg, print_timing=False, device="cpu")
+    if path == "fused_estimate":
+        def fn():
+            return st._fused_estimate_impl(left, right)[0]
+    elif path == "hyp_search":
+        mesh = shard.make_mesh(1, 2, devices=["cpu"] * 2)
+        _, (pq, pt, v) = st._fused_estimate_impl(left, right)
+
+        def fn():
+            return shard._hyp_search(mesh, 0, pq, pt, v, cfg.ransac,
+                                     cfg.ransac.num_iterations // 2).H
+    elif path == "auto_pair_row":
+        feats = [pipeline.auto_detect(img, cfg.harris)
+                 for img in (left, right)]
+
+        def fn():
+            return pipeline.auto_pair_row(feats[1], feats[0], cfg)
+    else:
+        mesh = shard.make_mesh(1, 1, devices=["cpu"])
+
+        def fn():
+            return shard.fused_estimate_batched(left[None], right[None], cfg,
+                                                mesh)[0][0]
+    seen, row = _host_reads(fn)
+    assert seen == []
+    assert bool(torch.isfinite(row).all())
+    if path != "hyp_search":
+        assert float(row[10 if path == "auto_pair_row" else 11]) == 1.0  # ok
