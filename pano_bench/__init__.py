@@ -1,0 +1,25 @@
+"""The benchmark of pano_tpu_torch, the PyTorch and CUDA port.
+
+One command runs one cell once, on the CUDA devices of the machine it
+starts on:
+
+    python3 -m pano_bench.run --workload <cell> --seed <n> --seconds <s> \
+        --trace <0|1>
+
+``BENCHMARK.json`` at the repository root names the cells, the
+configurations and the metrics; everything that belongs to one of them
+is a file of its own under this folder, found by its name:
+
+* ``configs/<config>.json``: the deployment (image sizes, the pipeline's
+  options, what was assumed or reduced), and ``limits/<config>.json``
+  the limits of the comparison that decides ``correct``;
+* ``traffic/<traffic>.json``: the mix one of the general loops of
+  ``drivers.py`` reads (pool, planted offsets, depth, batch, sampling);
+* ``metrics/<metric>.py``: a per-layer metric's reader of the trace;
+* ``kernel_steps.json`` and ``spans.json``: which trace kernels belong
+  to which step of the roofline, and which program calls get a layer
+  span.
+
+The harness imports ``pano_tpu_torch`` and nothing else of the
+repository.
+"""

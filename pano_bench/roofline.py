@@ -1,0 +1,91 @@
+"""The least time each step of a panorama could take on an H100, from
+the shapes of the work, for ``kernels_roofline``.
+
+Copied from the port's ``chip_smoke.py`` (its ``bound`` and its
+per-pixel operation counts, counted there from each kernel's
+arithmetic) and rewritten as the work a step needs, not what today's
+kernel does: each image is detected and described once, each adjacent
+pair matched once, each source read once and the canvas written once.
+A kernel that later replaces another for the same step reads against
+the same count.
+
+Peaks: NVIDIA's data sheet for the H100 SXM, dense, at its 700 W limit
+(the run reports the card's own limit beside the number).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Sequence, Tuple
+
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "int8": 1979e12}
+
+# Operations per pixel or per pair, from the kernels' arithmetic
+# (chip_smoke.py). Detect: gray 5, two Sobels 22, products 3, two 5-tap
+# Gaussian passes over three planes 54, R 7, NMS 9 compares.
+DETECT_OPS_PER_PX = 100
+# Match's f32 epilogue per (query, train) pair: the SSD from the product
+# (convert, scale, two adds) 4, the row's best, index and second 5, the
+# column's masked minimum and its row 4.
+MATCH_EPILOGUE_OPS = 13
+# Warp per window pixel: inverse map 14, floor and fractions 4, tap
+# weights 8, three channels of four taps 24, round and clip 9; the ramp
+# alpha of feather and multiband 52 more.
+WARP_OPS_PER_PX = 59
+ALPHA_OPS_PER_PX = 52
+# The refine's 9x9 eigenvector: 8 sweeps of the 36 rotations a sweep
+# needs, 179 f64 operations each.
+EIGVEC_OPS = 8 * 36 * 179
+
+
+def least_seconds(nbytes: float, ops: Dict[str, float]) -> float:
+    """The larger of the bytes over the memory rate and, of each type's
+    operations over its peak, the largest (they run on other units)."""
+    t_ops = max([n / PEAK_OPS_PER_S[k] for k, n in ops.items()] + [0.0])
+    return max(nbytes / HBM_BYTES_PER_S, t_ops)
+
+
+def panorama_steps(images: Sequence[Tuple[int, int]],
+                   canvas: Tuple[int, int], keypoints: int, patch: int,
+                   alpha: bool) -> Dict[str, float]:
+    """Seconds of each step for one panorama of `images` ((h, w) each,
+    image 0 the anchor, each next one estimated against the one before)
+    on a `canvas` (h, w), with `keypoints` per image and `patch`-sized
+    descriptors; `alpha` when the blend warps with the ramp alpha."""
+    d = patch * patch * 3
+    steps = {"detect": 0.0, "describe": 0.0, "match": 0.0,
+             "warp_compose": 0.0, "eigvec": 0.0}
+    for h, w in images:
+        score_px = math.ceil(h / 2) * math.ceil(w / 2)
+        steps["detect"] += least_seconds(
+            h * w * 3 + score_px * 4, {"f32": DETECT_OPS_PER_PX * h * w})
+        # patch bytes, coordinates and flags in; f32 descriptors and
+        # border flags out
+        steps["describe"] += least_seconds(
+            keypoints * (d + 8 + 1 + d * 4 + 1), {})
+    pairs = len(images) - 1
+    kk = keypoints * keypoints
+    steps["match"] = pairs * least_seconds(
+        2 * keypoints * (d * 4 + 1) + keypoints * 12,
+        {"int8": 2.0 * kk * d, "f32": MATCH_EPILOGUE_OPS * kk})
+    steps["eigvec"] = pairs * least_seconds(81 * 4 + 9 * 4,
+                                            {"f64": EIGVEC_OPS})
+    warped_px = sum(h * w for h, w in images[1:])
+    per_px = WARP_OPS_PER_PX + (ALPHA_OPS_PER_PX if alpha else 0)
+    steps["warp_compose"] = least_seconds(
+        sum(h * w * 3 for h, w in images) + canvas[0] * canvas[1] * 3,
+        {"f32": per_px * warped_px})
+    return steps
+
+
+def roofline_pct(work: Dict[str, float],
+                 kernel_us: Dict[str, float]) -> float:
+    """100 x the sum of the steps' least times over the sum of their
+    kernels' device time, over the steps whose kernels ran; None when
+    none did."""
+    steps = [s for s, us in kernel_us.items() if us > 0 and s in work]
+    if not steps:
+        return None
+    return 100.0 * sum(work[s] for s in steps) * 1e6 \
+        / sum(kernel_us[s] for s in steps)

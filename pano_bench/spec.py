@@ -1,0 +1,77 @@
+"""Finding a cell's parts by name: ``BENCHMARK.json`` and the data files
+and metric readers under this folder.
+
+A later change adds a cell, a traffic mix, a configuration or a metric
+by adding files here and entries to ``BENCHMARK.json``; nothing in this
+module names one of them.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import json
+import pathlib
+from typing import Callable, Dict, List, Optional
+
+HERE = pathlib.Path(__file__).resolve().parent
+
+
+class Spec:
+    """``BENCHMARK.json`` and the files beside it, rooted at `bench_dir`
+    (this folder by default) and `repo` (its parent)."""
+
+    def __init__(self, bench_dir: pathlib.Path = HERE,
+                 benchmark_json: Optional[pathlib.Path] = None):
+        self.dir = pathlib.Path(bench_dir)
+        self.repo = self.dir.parent
+        path = benchmark_json or self.repo / "BENCHMARK.json"
+        with open(path) as f:
+            self.bench = json.load(f)
+        self._readers: Dict[str, Callable] = {}
+
+    def _load_json(self, path: pathlib.Path) -> dict:
+        with open(path) as f:
+            return json.load(f)
+
+    def workload(self, name: str) -> dict:
+        for w in self.bench["workloads"]:
+            if w["name"] == name:
+                return w
+        raise KeyError(f"no workload {name!r} in BENCHMARK.json")
+
+    def config(self, name: str) -> dict:
+        """The configuration file of `name` as it is run."""
+        for c in self.bench["configs"]:
+            if c["name"] == name:
+                return self._load_json(self.repo / c["file"])
+        raise KeyError(f"no config {name!r} in BENCHMARK.json")
+
+    def traffic(self, name: str) -> dict:
+        return self._load_json(self.dir / "traffic" / f"{name}.json")
+
+    def limits(self, config_name: str) -> dict:
+        return self._load_json(self.dir / "limits" / f"{config_name}.json")
+
+    def data(self, name: str):
+        """A data file of the harness itself (``kernel_steps.json``,
+        ``spans.json``)."""
+        return self._load_json(self.dir / name)
+
+    def metrics(self, cell: str, kind: str) -> List[dict]:
+        """The `kind` ("end_to_end" or "per_layer") metrics that `cell`
+        reports: those that list it under "workloads", or list none."""
+        return [m for m in self.bench[kind]
+                if "workloads" not in m or cell in m["workloads"]]
+
+    def reader(self, metric: str) -> Callable:
+        """``read(trace)`` of ``metrics/<metric>.py``."""
+        if metric not in self._readers:
+            path = self.dir / "metrics" / f"{metric}.py"
+            mod_spec = importlib.util.spec_from_file_location(
+                f"pano_bench_metric_{len(self._readers)}", path)
+            if mod_spec is None or mod_spec.loader is None:
+                raise FileNotFoundError(path)
+            mod = importlib.util.module_from_spec(mod_spec)
+            mod_spec.loader.exec_module(mod)
+            self._readers[metric] = mod.read
+        return self._readers[metric]
