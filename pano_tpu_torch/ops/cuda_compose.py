@@ -35,7 +35,9 @@ from pano_tpu_torch.ops.cuda_warp import (
     Window, _check_device, _check_image, _check_window,
 )
 
-# Kernel launches since the last reset (chip_smoke.py reads them).
+# Kernel launches since the last reset: tests and chip_smoke.py read them
+# to prove that the kernel path ran. They are not tracing; the profiler's
+# spans (timer.span) are.
 launches = 0        # K5, compose_canvas
 chain_launches = 0  # K6, compose_chain_canvas
 

@@ -31,7 +31,9 @@ from pano_tpu_torch import _build
 from pano_tpu_torch.ops import conv as conv_ops
 from pano_tpu_torch.ops import harris as harris_ops
 
-# Kernel launches since the last reset (chip_smoke.py reads them).
+# Kernel launches since the last reset: tests and chip_smoke.py read them
+# to prove that the kernel path ran. They are not tracing; the profiler's
+# spans (timer.span) are.
 launches = 0          # harris_scores, one image
 batched_launches = 0  # harris_scores_batched, a stack of images
 

@@ -29,7 +29,10 @@ import torch
 
 from pano_tpu_torch import _build
 
-launches = 0  # kernel launches since the last reset (chip_smoke reads it)
+# Kernel launches since the last reset: tests and chip_smoke.py read it to
+# prove that the kernel path ran. It is not tracing; the profiler's spans
+# (timer.span) are.
+launches = 0
 
 
 @functools.lru_cache(maxsize=64)

@@ -45,7 +45,9 @@ import torch
 from pano_tpu_torch import _build
 from pano_tpu_torch.ops import warp as warp_ops
 
-# Kernel launches since the last reset (chip_smoke.py reads them).
+# Kernel launches since the last reset: tests and chip_smoke.py read them
+# to prove that the kernel path ran. They are not tracing; the profiler's
+# spans (timer.span) are.
 launches = 0                 # K4a, warp_compose_overlay
 packed_launches = 0          # K4b, warp_packed
 batched_packed_launches = 0  # K4b, warp_packed_batched

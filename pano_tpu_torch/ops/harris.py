@@ -18,6 +18,7 @@ import torch
 
 from pano_tpu_torch.config import HarrisOptions
 from pano_tpu_torch.ops import conv as conv_ops
+from pano_tpu_torch.timer import span
 
 
 class KeyPoints(NamedTuple):
@@ -93,9 +94,10 @@ def harris_detect(img_u8: torch.Tensor, opts: HarrisOptions) -> KeyPoints:
     # it is imported here rather than at the top.
     from pano_tpu_torch.ops import cuda_harris
 
-    bmax = cuda_harris.harris_scores(img_u8, opts.k, opts.nms_thresh,
-                                     opts.nms_neighborhood)
-    return _top_keypoints(bmax, opts)
+    with span("detect"):
+        bmax = cuda_harris.harris_scores(img_u8, opts.k, opts.nms_thresh,
+                                         opts.nms_neighborhood)
+        return _top_keypoints(bmax, opts)
 
 
 def harris_detect_batched(imgs_u8: torch.Tensor,
@@ -106,9 +108,10 @@ def harris_detect_batched(imgs_u8: torch.Tensor,
     top-K from its own map."""
     from pano_tpu_torch.ops import cuda_harris
 
-    bmax = cuda_harris.harris_scores_batched(
-        imgs_u8, opts.k, opts.nms_thresh, opts.nms_neighborhood)
-    return [_top_keypoints(m, opts) for m in bmax]
+    with span("detect"):
+        bmax = cuda_harris.harris_scores_batched(
+            imgs_u8, opts.k, opts.nms_thresh, opts.nms_neighborhood)
+        return [_top_keypoints(m, opts) for m in bmax]
 
 
 def _top_keypoints(bmax: torch.Tensor, opts: HarrisOptions) -> KeyPoints:

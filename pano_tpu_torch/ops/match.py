@@ -16,6 +16,7 @@ import torch
 from pano_tpu_torch.config import HarrisOptions
 from pano_tpu_torch.ops import cuda_gather, cuda_match
 from pano_tpu_torch.ops.harris import KeyPoints
+from pano_tpu_torch.timer import span
 
 
 class Matches(NamedTuple):
@@ -87,12 +88,13 @@ def match_keypoints(
 ) -> Matches:
     """Descriptors for both sides, then argmin-SSD. ``q`` is the query
     side (the reference's keypointsL/image1), ``t`` the train side."""
-    desc_q, bq = extract_patch_descriptors(img_q, kps_q, opts.patch_size)
-    desc_t, bt = extract_patch_descriptors(img_t, kps_t, opts.patch_size)
-    return match_descriptors(
-        desc_q, bq, desc_t, bt, opts.max_ssd_thresh,
-        ratio_thresh=opts.ratio_thresh, cross_check=opts.cross_check,
-    )
+    with span("match"):
+        desc_q, bq = extract_patch_descriptors(img_q, kps_q, opts.patch_size)
+        desc_t, bt = extract_patch_descriptors(img_t, kps_t, opts.patch_size)
+        return match_descriptors(
+            desc_q, bq, desc_t, bt, opts.max_ssd_thresh,
+            ratio_thresh=opts.ratio_thresh, cross_check=opts.cross_check,
+        )
 
 
 def gather_match_points(
@@ -101,11 +103,12 @@ def gather_match_points(
     """(pts_q (K, 2) f32, pts_t (K, 2) f32, valid (K,) bool): row i pairs
     a query keypoint with its train match; valid matches are compacted to
     the front in order, so RANSAC samples from [0, count)."""
-    order = torch.argsort((~matches.valid).to(torch.uint8), stable=True)
-    pts_q = kps_q.xy[order].float()
-    pts_t = kps_t.xy[matches.train_idx[order].long()].float()
-    count = matches.valid.sum(dtype=torch.int32)
-    valid = torch.arange(
-        matches.valid.shape[0], dtype=torch.int32, device=count.device
-    ) < count
-    return pts_q, pts_t, valid
+    with span("match"):
+        order = torch.argsort((~matches.valid).to(torch.uint8), stable=True)
+        pts_q = kps_q.xy[order].float()
+        pts_t = kps_t.xy[matches.train_idx[order].long()].float()
+        count = matches.valid.sum(dtype=torch.int32)
+        valid = torch.arange(
+            matches.valid.shape[0], dtype=torch.int32, device=count.device
+        ) < count
+        return pts_q, pts_t, valid

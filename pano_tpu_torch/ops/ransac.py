@@ -32,6 +32,7 @@ import torch
 
 from pano_tpu_torch.config import RansacOptions
 from pano_tpu_torch.ops import cuda_eigh
+from pano_tpu_torch.timer import span
 
 Sampler = Callable[[torch.Tensor], torch.Tensor]
 
@@ -323,21 +324,23 @@ def ransac_best_hypothesis(
     sampler: Sampler,
 ):
     """Score `num_iterations` hypotheses; return (best_H (3,3), count ())."""
-    n_valid = valid.sum(dtype=torch.int32)
-    idx = sampler(n_valid).to(device=pts_src.device, dtype=torch.int64)
-    if idx.shape != (num_iterations, num_samples):
-        raise ValueError(
-            f"sampler returned {tuple(idx.shape)}, want "
-            f"{(num_iterations, num_samples)}"
-        )
-    flat = idx.reshape(-1)
-    hs = homography_from_4pts(
-        pts_src.index_select(0, flat).reshape(idx.shape + (2,)),
-        pts_dst.index_select(0, flat).reshape(idx.shape + (2,)),
-    )                                                       # (N, 3, 3)
-    counts = _score_hypotheses(hs, pts_src, pts_dst, valid, distance_threshold)
-    best = torch.argmax(counts)
-    return take(hs, best), take(counts, best)
+    with span("ransac.search"):
+        n_valid = valid.sum(dtype=torch.int32)
+        idx = sampler(n_valid).to(device=pts_src.device, dtype=torch.int64)
+        if idx.shape != (num_iterations, num_samples):
+            raise ValueError(
+                f"sampler returned {tuple(idx.shape)}, want "
+                f"{(num_iterations, num_samples)}"
+            )
+        flat = idx.reshape(-1)
+        hs = homography_from_4pts(
+            pts_src.index_select(0, flat).reshape(idx.shape + (2,)),
+            pts_dst.index_select(0, flat).reshape(idx.shape + (2,)),
+        )                                                   # (N, 3, 3)
+        counts = _score_hypotheses(hs, pts_src, pts_dst, valid,
+                                   distance_threshold)
+        best = torch.argmax(counts)
+        return take(hs, best), take(counts, best)
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -354,15 +357,18 @@ def ransac_homography(
     sampler: Optional[Sampler] = None,
 ) -> RansacResult:
     """Estimate H mapping src -> dst: RANSAC, then optional refine."""
-    if sampler is None:
-        sampler = default_sampler(
-            opts.num_iterations, opts.num_samples, opts.seed, pts_src.device
+    with span("ransac"):
+        if sampler is None:
+            sampler = default_sampler(
+                opts.num_iterations, opts.num_samples, opts.seed,
+                pts_src.device
+            )
+        best_h, best_count = ransac_best_hypothesis(
+            pts_src, pts_dst, valid, opts.num_iterations, opts.num_samples,
+            opts.distance_threshold, sampler,
         )
-    best_h, best_count = ransac_best_hypothesis(
-        pts_src, pts_dst, valid, opts.num_iterations, opts.num_samples,
-        opts.distance_threshold, sampler,
-    )
-    return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid, opts)
+        return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid,
+                               opts)
 
 
 def finalize_ransac(
@@ -374,26 +380,29 @@ def finalize_ransac(
     opts: RansacOptions,
 ) -> RansacResult:
     """Degeneracy guard + inlier mask + optional least-squares refine."""
-    n_valid = valid.sum(dtype=torch.int32)
-    enough = n_valid >= opts.num_samples
-    eye = torch.eye(3, dtype=pts_src.dtype, device=pts_src.device)
-    best_h = torch.where(torch.isfinite(best_h).all() & enough, best_h, eye)
-    best_count = best_count.to(torch.int32)
-    mask0 = _inlier_mask(
-        best_h, pts_src, pts_dst, valid, opts.distance_threshold
-    )
-    if opts.refine:
-        refined = refine_homography(pts_src, pts_dst, mask0)
-        mask_r = _inlier_mask(
-            refined, pts_src, pts_dst, valid, opts.distance_threshold
+    with span("ransac.finalize"):
+        n_valid = valid.sum(dtype=torch.int32)
+        enough = n_valid >= opts.num_samples
+        eye = torch.eye(3, dtype=pts_src.dtype, device=pts_src.device)
+        best_h = torch.where(torch.isfinite(best_h).all() & enough, best_h,
+                             eye)
+        best_count = best_count.to(torch.int32)
+        mask0 = _inlier_mask(
+            best_h, pts_src, pts_dst, valid, opts.distance_threshold
         )
-        count_r = mask_r.sum(dtype=torch.int32)
-        use_refined = torch.isfinite(refined).all() & (count_r >= best_count)
-        best_h = torch.where(use_refined, refined, best_h)
-        mask0 = torch.where(use_refined, mask_r, mask0)
-        best_count = torch.where(use_refined, count_r, best_count)
-    ok = (best_count >= opts.min_inliers) & enough
-    return RansacResult(
-        H=best_h, inlier_count=best_count, num_matches=n_valid,
-        inlier_mask=mask0, ok=ok,
-    )
+        if opts.refine:
+            refined = refine_homography(pts_src, pts_dst, mask0)
+            mask_r = _inlier_mask(
+                refined, pts_src, pts_dst, valid, opts.distance_threshold
+            )
+            count_r = mask_r.sum(dtype=torch.int32)
+            use_refined = (torch.isfinite(refined).all()
+                           & (count_r >= best_count))
+            best_h = torch.where(use_refined, refined, best_h)
+            mask0 = torch.where(use_refined, mask_r, mask0)
+            best_count = torch.where(use_refined, count_r, best_count)
+        ok = (best_count >= opts.min_inliers) & enough
+        return RansacResult(
+            H=best_h, inlier_count=best_count, num_matches=n_valid,
+            inlier_mask=mask0, ok=ok,
+        )

@@ -54,7 +54,7 @@ from pano_tpu_torch.ops import harris as harris_ops
 from pano_tpu_torch.ops import match as match_ops
 from pano_tpu_torch.ops import ransac as ransac_ops
 from pano_tpu_torch.ops import warp as warp_ops
-from pano_tpu_torch.timer import Timer, print_stage, synchronize
+from pano_tpu_torch.timer import Timer, print_stage, span, synchronize
 
 
 class Mesh:
@@ -121,10 +121,14 @@ def _data_shards(mesh: Mesh, n: int) -> List[Tuple[torch.device, List[int]]]:
 
 
 def _to(x, dev) -> torch.Tensor:
-    """A numpy array or tensor as a contiguous tensor on `dev`."""
+    """A numpy array or tensor as a contiguous tensor on `dev`; a host
+    array's copy is an upload span."""
+    if pipeline._resident(x, dev):
+        return x.to(dev).contiguous()
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.require(x, requirements=["C", "W"]))
-    return torch.as_tensor(x).to(dev).contiguous()
+    with span("upload"):
+        return torch.as_tensor(x).to(dev).contiguous()
 
 
 def _rows(x, rows: List[int], dev) -> torch.Tensor:
@@ -195,23 +199,24 @@ def _hyp_search(mesh: Mesh, data: int, pts_q, pts_t, valid, r_opts,
     shard h scores `iters_local` hypotheses drawn from
     fold_in(PRNGKey(seed), h); the best of the shards (the first maximum)
     is finalized on the row's first device."""
-    home = mesh.device(data)
-    hs, counts = [], []
-    for h in range(mesh.shape["hyp"]):
-        dev = mesh.device(data, h)
-        key = ransac_ops.fold_in(ransac_ops.prng_key(r_opts.seed), h)
-        sampler = ransac_ops.key_sampler(key, iters_local,
-                                         r_opts.num_samples, dev)
-        bh, bc = ransac_ops.ransac_best_hypothesis(
-            pts_q.to(dev), pts_t.to(dev), valid.to(dev), iters_local,
-            r_opts.num_samples, r_opts.distance_threshold, sampler)
-        hs.append(bh.to(home))
-        counts.append(bc.to(home))
-    all_h, all_c = torch.stack(hs), torch.stack(counts)
-    win = torch.argmax(all_c)
-    return ransac_ops.finalize_ransac(
-        ransac_ops.take(all_h, win), ransac_ops.take(all_c, win), pts_q,
-        pts_t, valid, r_opts)
+    with span("ransac"):
+        home = mesh.device(data)
+        hs, counts = [], []
+        for h in range(mesh.shape["hyp"]):
+            dev = mesh.device(data, h)
+            key = ransac_ops.fold_in(ransac_ops.prng_key(r_opts.seed), h)
+            sampler = ransac_ops.key_sampler(key, iters_local,
+                                             r_opts.num_samples, dev)
+            bh, bc = ransac_ops.ransac_best_hypothesis(
+                pts_q.to(dev), pts_t.to(dev), valid.to(dev), iters_local,
+                r_opts.num_samples, r_opts.distance_threshold, sampler)
+            hs.append(bh.to(home))
+            counts.append(bc.to(home))
+        all_h, all_c = torch.stack(hs), torch.stack(counts)
+        win = torch.argmax(all_c)
+        return ransac_ops.finalize_ransac(
+            ransac_ops.take(all_h, win), ransac_ops.take(all_c, win), pts_q,
+            pts_t, valid, r_opts)
 
 
 def batched_stitch_step(
@@ -332,67 +337,71 @@ def composite_pairs_batched(
     K5 overlay too, which gives K4a's canvas bit for bit (the plain
     versions are one function, and each kernel is bit-identical to its
     plain version)."""
-    mesh = _mesh_for(mesh)
-    st = config.stitch
-    warp_ops._check_blend(st.blend)
-    stitcher = pipeline.get_pair_stitcher(config, False, "", mesh.device(),
-                                          None)
-    shape_l = tuple(int(s) for s in lefts.shape[1:3])
-    hr, wr = (int(s) for s in rights.shape[1:3])
-    b_total = int(lefts.shape[0])
-    geo: List[Optional[tuple]] = [None] * b_total
-    groups: dict = {}
-    for b in range(b_total):
-        if not ok[b]:
-            continue
-        h = np.asarray(hs[b], np.float64)
-        (ch, cw), t_mat, (min_x, min_y) = warp_ops.compute_canvas_geometry(
-            h, shape_l, (hr, wr))
-        m = t_mat @ h
-        window = warp_ops.warp_window(warp_ops.warp_corners(m, hr, wr), ch,
-                                      cw)
-        geo[b] = (np.linalg.inv(m), int(-min_y), int(-min_x), window, ch, cw)
-        key = (ch, cw, window[2] - window[0], window[3] - window[1])
-        groups.setdefault(key, []).append(b)
-
-    has_alpha = st.blend != "overlay"
-    emit_weight = has_alpha or st.gain_compensation
-    out: List[Optional[np.ndarray]] = [None] * b_total
-    pinned = mesh.device().type == "cuda"
-    for idxs in groups.values():
-        # Each canvas goes to one host buffer for the group as soon as it
-        # is composed (non-blocking on a card), so that a card holds one
-        # canvas at a time; the group comes out in one fetch, as the JAX
-        # package fetches each group's batched dispatch.
-        _, _, _, _, ch, cw = geo[idxs[0]]
-        host = torch.empty((len(idxs), ch, cw, 3), dtype=torch.uint8,
-                           pin_memory=pinned)
-        copied, done = [], set()
-        for dev, shard in _data_shards(mesh, len(idxs)):
-            members = [idxs[k] for k in shard]
-            if not members:
+    with span("compose"):
+        mesh = _mesh_for(mesh)
+        st = config.stitch
+        warp_ops._check_blend(st.blend)
+        stitcher = pipeline.get_pair_stitcher(config, False, "", mesh.device(),
+                                              None)
+        shape_l = tuple(int(s) for s in lefts.shape[1:3])
+        hr, wr = (int(s) for s in rights.shape[1:3])
+        b_total = int(lefts.shape[0])
+        geo: List[Optional[tuple]] = [None] * b_total
+        groups: dict = {}
+        for b in range(b_total):
+            if not ok[b]:
                 continue
-            warped = cuda_warp.warp_packed_batched(
-                [_to(rights[b], dev) for b in members],
-                [geo[b][0] for b in members], [geo[b][3] for b in members],
-                has_alpha, emit_weight)
-            for k, b, (rgb, w) in zip(shard, members, warped):
-                if k in done:
-                    continue  # a padded repeat
-                done.add(k)
-                _, ty, tx, window, ch, cw = geo[b]
-                host[k].copy_(stitcher._compose_window(
-                    _to(lefts[b], dev), rgb, w, ty, tx, window, ch, cw),
-                    non_blocking=pinned)
-            if dev.type == "cuda":
-                copied.append(torch.cuda.Event())
-                copied[-1].record(torch.cuda.current_stream(dev))
-        for event in copied:
-            event.synchronize()
-        fetched = pipeline._host_fetch(host)
-        for k, b in enumerate(idxs):
-            out[b] = fetched[k]
-    return out
+            h = np.asarray(hs[b], np.float64)
+            (ch, cw), t_mat, (min_x, min_y) = warp_ops.compute_canvas_geometry(
+                h, shape_l, (hr, wr))
+            m = t_mat @ h
+            window = warp_ops.warp_window(warp_ops.warp_corners(m, hr, wr), ch,
+                                          cw)
+            geo[b] = (np.linalg.inv(m), int(-min_y), int(-min_x), window, ch,
+                      cw)
+            key = (ch, cw, window[2] - window[0], window[3] - window[1])
+            groups.setdefault(key, []).append(b)
+
+        has_alpha = st.blend != "overlay"
+        emit_weight = has_alpha or st.gain_compensation
+        out: List[Optional[np.ndarray]] = [None] * b_total
+        pinned = mesh.device().type == "cuda"
+        for idxs in groups.values():
+            # Each canvas goes to one host buffer for the group as soon as it
+            # is composed (non-blocking on a card), so that a card holds one
+            # canvas at a time; the group comes out in one fetch, as the JAX
+            # package fetches each group's batched dispatch.
+            _, _, _, _, ch, cw = geo[idxs[0]]
+            host = torch.empty((len(idxs), ch, cw, 3), dtype=torch.uint8,
+                               pin_memory=pinned)
+            copied, done = [], set()
+            for dev, shard in _data_shards(mesh, len(idxs)):
+                members = [idxs[k] for k in shard]
+                if not members:
+                    continue
+                warped = cuda_warp.warp_packed_batched(
+                    [_to(rights[b], dev) for b in members],
+                    [geo[b][0] for b in members], [geo[b][3] for b in members],
+                    has_alpha, emit_weight)
+                for k, b, (rgb, w) in zip(shard, members, warped):
+                    if k in done:
+                        continue  # a padded repeat
+                    done.add(k)
+                    _, ty, tx, window, ch, cw = geo[b]
+                    host[k].copy_(stitcher._compose_window(
+                        _to(lefts[b], dev), rgb, w, ty, tx, window, ch, cw),
+                        non_blocking=pinned)
+                if dev.type == "cuda":
+                    copied.append(torch.cuda.Event())
+                    copied[-1].record(torch.cuda.current_stream(dev))
+            if copied:
+                with span("wait"):
+                    for event in copied:
+                        event.synchronize()
+            fetched = pipeline._host_fetch(host)
+            for k, b in enumerate(idxs):
+                out[b] = fetched[k]
+        return out
 
 
 def stitch_pairs_batched(
@@ -403,11 +412,12 @@ def stitch_pairs_batched(
     estimates batched over the data axis with one host fetch
     (``fused_estimate_batched``), then ``composite_pairs_batched``.
     Returns host uint8 panoramas, None for failed pairs."""
-    packed, _ = fused_estimate_batched(lefts, rights, config, mesh)
-    v = pipeline._host_fetch(packed)
-    hs = v[:, :9].astype(np.float64).reshape(-1, 3, 3)
-    return composite_pairs_batched(lefts, rights, hs, v[:, 11] > 0.5,
-                                   config, mesh)
+    with span("mesh"):
+        packed, _ = fused_estimate_batched(lefts, rights, config, mesh)
+        v = pipeline._host_fetch(packed)
+        hs = v[:, :9].astype(np.float64).reshape(-1, 3, 3)
+        return composite_pairs_batched(lefts, rights, hs, v[:, 11] > 0.5,
+                                       config, mesh)
 
 
 def composite_global_sharded(
@@ -434,23 +444,25 @@ def composite_global_sharded(
         return pipeline.composite_global(images, devs, globals_h, config,
                                          anchor, _weights_out)
     warp_ops._check_blend(config.stitch.blend)
-    t_mat, canvas_h, canvas_w = pipeline.global_canvas_geometry(
-        images, globals_h, anchor)
-    plan = pipeline.global_warp_plan(devs, globals_h, anchor, t_mat,
-                                     canvas_h, canvas_w)
-    has_alpha = config.stitch.blend in ("feather", "multiband")
-    warped = {}
-    for lvl in sorted({p[3] for p in plan}):
-        group = [p for p in plan if p[3] == lvl]
-        got = warp_windows_batched(
-            [pipeline.mip_source(devs[i], lvl) for i, _, _, _ in group],
-            [m_inv for _, m_inv, _, _ in group],
-            [window for _, _, window, _ in group], mesh, has_alpha)
-        warped.update(zip([i for i, _, _, _ in group], got))
-    return pipeline.blend_global(
-        devs[anchor], t_mat, canvas_h, canvas_w,
-        ((window, warped[i]) for i, _, window, _ in plan), config,
-        _weights_out)
+    with span("compose"):
+        with span("geometry"):
+            t_mat, canvas_h, canvas_w = pipeline.global_canvas_geometry(
+                images, globals_h, anchor)
+            plan = pipeline.global_warp_plan(devs, globals_h, anchor, t_mat,
+                                             canvas_h, canvas_w)
+        has_alpha = config.stitch.blend in ("feather", "multiband")
+        warped = {}
+        for lvl in sorted({p[3] for p in plan}):
+            group = [p for p in plan if p[3] == lvl]
+            got = warp_windows_batched(
+                [pipeline.mip_source(devs[i], lvl) for i, _, _, _ in group],
+                [m_inv for _, m_inv, _, _ in group],
+                [window for _, _, window, _ in group], mesh, has_alpha)
+            warped.update(zip([i for i, _, _, _ in group], got))
+        return pipeline.blend_global(
+            devs[anchor], t_mat, canvas_h, canvas_w,
+            ((window, warped[i]) for i, _, window, _ in plan), config,
+            _weights_out)
 
 
 # --- the multi-image modes ---------------------------------------------------
@@ -501,7 +513,7 @@ def stitch_all_images_chain_sharded(
         else:
             k = i - 1
             h = stitcher.interpret_fused_row(
-                v[k], lambda k=k: tuple(p[k].cpu().numpy() for p in pts))
+                v[k], lambda k=k: pipeline._to_host(*(p[k] for p in pts)))
         if h is None:
             print(f"Failed to stitch image {i}!", file=sys.stderr)
             globals_h.append(None)

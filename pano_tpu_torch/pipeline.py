@@ -67,7 +67,7 @@ from pano_tpu_torch.ops import match as match_ops
 from pano_tpu_torch.ops import mip as mip_ops
 from pano_tpu_torch.ops import ransac as ransac_ops
 from pano_tpu_torch.ops import warp as warp_ops
-from pano_tpu_torch.timer import (Timer, fetch_image, print_stage,
+from pano_tpu_torch.timer import (Timer, fetch_image, print_stage, span,
                                   synchronize)
 
 try:
@@ -97,41 +97,42 @@ def fused_canvas_geometry(
     canvas bounds, and the left placement ceil(-min - 1e-3), without the
     tile round-up. The canvas is exact, so the row's safe flag is 1 and
     its crop origin (0, 0)."""
-    f32 = np.float32
-    hl, wl = left_shape
-    hr, wr = right_shape
-    h = np.asarray(row[:9], f32).reshape(3, 3)
-    cs = np.array(
-        [[0, 0, 1], [wr, 0, 1], [wr, hr, 1], [0, hr, 1]], f32
-    )
-    wc = np.stack(
-        [cs[:, 0] * h[r, 0] + cs[:, 1] * h[r, 1] + cs[:, 2] * h[r, 2]
-         for r in range(3)],
-        axis=1,
-    )
-    wxy = wc[:, :2] / wc[:, 2:3]
-    min_x = np.minimum(f32(0.0), wxy[:, 0].min())
-    min_y = np.minimum(f32(0.0), wxy[:, 1].min())
-    max_x = np.maximum(f32(wl), wxy[:, 0].max())
-    max_y = np.maximum(f32(hl), wxy[:, 1].max())
-    canvas_h = np.ceil(max_y - min_y)
-    canvas_w = np.ceil(max_x - min_x)
-    tx = int(np.ceil(-min_x - f32(1e-3)))
-    ty = int(np.ceil(-min_y - f32(1e-3)))
+    with span("geometry"):
+        f32 = np.float32
+        hl, wl = left_shape
+        hr, wr = right_shape
+        h = np.asarray(row[:9], f32).reshape(3, 3)
+        cs = np.array(
+            [[0, 0, 1], [wr, 0, 1], [wr, hr, 1], [0, hr, 1]], f32
+        )
+        wc = np.stack(
+            [cs[:, 0] * h[r, 0] + cs[:, 1] * h[r, 1] + cs[:, 2] * h[r, 2]
+             for r in range(3)],
+            axis=1,
+        )
+        wxy = wc[:, :2] / wc[:, 2:3]
+        min_x = np.minimum(f32(0.0), wxy[:, 0].min())
+        min_y = np.minimum(f32(0.0), wxy[:, 1].min())
+        max_x = np.maximum(f32(wl), wxy[:, 0].max())
+        max_y = np.maximum(f32(hl), wxy[:, 1].max())
+        canvas_h = np.ceil(max_y - min_y)
+        canvas_w = np.ceil(max_x - min_x)
+        tx = int(np.ceil(-min_x - f32(1e-3)))
+        ty = int(np.ceil(-min_y - f32(1e-3)))
 
-    m = h.copy()
-    m[0] = h[0] + f32(tx) * h[2]
-    m[1] = h[1] + f32(ty) * h[2]
-    m_inv = ransac_ops.inv3x3(torch.from_numpy(m)).numpy()
-    corners = np.stack([wxy[:, 0] + f32(tx), wxy[:, 1] + f32(ty)], axis=1)
-    window = warp_ops.warp_window(corners, int(canvas_h), int(canvas_w))
-    full = np.concatenate(
-        [np.asarray(row[:14], f32),
-         np.array([min_x, min_y, canvas_h, canvas_w, 1.0, 0.0, 0.0], f32)]
-    )
-    return FusedGeometry(
-        full, int(canvas_h), int(canvas_w), ty, tx, window, m_inv
-    )
+        m = h.copy()
+        m[0] = h[0] + f32(tx) * h[2]
+        m[1] = h[1] + f32(ty) * h[2]
+        m_inv = ransac_ops.inv3x3(torch.from_numpy(m)).numpy()
+        corners = np.stack([wxy[:, 0] + f32(tx), wxy[:, 1] + f32(ty)], axis=1)
+        window = warp_ops.warp_window(corners, int(canvas_h), int(canvas_w))
+        full = np.concatenate(
+            [np.asarray(row[:14], f32),
+             np.array([min_x, min_y, canvas_h, canvas_w, 1.0, 0.0, 0.0], f32)]
+        )
+        return FusedGeometry(
+            full, int(canvas_h), int(canvas_w), ty, tx, window, m_inv
+        )
 
 
 class PendingPair(NamedTuple):
@@ -162,9 +163,18 @@ def _suffix(label: str, tag: str) -> str:
     return f"{label} ({tag})" if tag else label
 
 
+def _resident(x, device) -> bool:
+    """Whether `x` is a tensor already on `device`'s kind of device, so
+    that moving it there copies nothing from the host."""
+    return isinstance(x, torch.Tensor) \
+        and x.device.type == torch.device(device).type
+
+
 def _to_device(img, device) -> torch.Tensor:
     """An (H, W, 3) uint8 BGR image (numpy array or tensor) as a
-    contiguous tensor on `device`."""
+    contiguous tensor on `device`; a host image's copy is an upload
+    span."""
+    resident = _resident(img, device)
     if isinstance(img, np.ndarray):  # torch wants writable memory
         img = torch.from_numpy(np.require(img, requirements=["C", "W"]))
     t = torch.as_tensor(img)
@@ -173,14 +183,26 @@ def _to_device(img, device) -> torch.Tensor:
             f"want an (H, W, 3) uint8 BGR image, got "
             f"{tuple(t.shape)} {t.dtype}"
         )
-    return t.to(device).contiguous()
+    if resident:
+        return t.to(device).contiguous()
+    with span("upload"):
+        return t.to(device).contiguous()
+
+
+def _to_host(*ts: torch.Tensor) -> tuple:
+    """Each of `ts` as host numpy: from a card, one host sync for them
+    all, in a wait span."""
+    if not any(t.device.type == "cuda" for t in ts):
+        return tuple(t.numpy() for t in ts)
+    with span("wait"):
+        return tuple(t.cpu().numpy() for t in ts)
 
 
 def _host_fetch(t: torch.Tensor) -> np.ndarray:
     """Device -> host copy of a multi-image path's stacked estimates or a
     batch's composite group: a named indirection so that tests can count
     the copies a path pays. Panoramas go through ``fetch_image``."""
-    return t.cpu().numpy()
+    return _to_host(t)[0]
 
 
 class PairStitcher:
@@ -262,13 +284,14 @@ class PairStitcher:
         blend and gain. The kernel wrappers choose by device: kernels on
         the GPU, their plain versions on the CPU."""
         st = self.config.stitch
-        if st.blend == "overlay" and not st.gain_compensation:
-            return cuda_warp.warp_compose_overlay(
-                right, m_inv, left, ty, tx, window, out_h, out_w)
-        rgb_win, w_win = cuda_warp.warp_packed(
-            right, m_inv, window, has_alpha=st.blend != "overlay")
-        return self._compose_window(left, rgb_win, w_win, ty, tx, window,
-                                    out_h, out_w)
+        with span("compose"):
+            if st.blend == "overlay" and not st.gain_compensation:
+                return cuda_warp.warp_compose_overlay(
+                    right, m_inv, left, ty, tx, window, out_h, out_w)
+            rgb_win, w_win = cuda_warp.warp_packed(
+                right, m_inv, window, has_alpha=st.blend != "overlay")
+            return self._compose_window(left, rgb_win, w_win, ty, tx,
+                                        window, out_h, out_w)
 
     def _compose_window(self, left, rgb_win, w_win, ty, tx, window, out_h,
                         out_w):
@@ -296,25 +319,28 @@ class PairStitcher:
         error): after gain, one that was non-black before it; after
         multiband, any covered one (genuinely dark content must not let
         the base show through)."""
-        st = self.config.stitch
-        hl, wl = left.shape[:2]
-        left_win = warp_ops.left_window(left, ty, tx, window)
-        w_l = warp_ops.left_weight_window(left_win, hl, wl, ty, tx, window)
-        right_f = rgb_win.float()
-        if st.gain_compensation:
-            overlap = (w_l > 0.05) & (w_win > 0.05)
-            g = warp_ops._estimate_gain(left_win.float(), right_f, overlap)
-            right_f = torch.clamp(torch.round(right_f * g), 0, 255)
-        if st.blend == "multiband":
-            win_out = warp_ops._multiband_compose(left_win.float(), right_f,
-                                                  w_l, w_win)
-            keep = (w_l > 0.0) | (w_win > 0.0)
-        else:
-            win_out = right_f.to(torch.uint8)
-            keep = rgb_win.ne(0).any(-1)
-        nudge = keep & ~win_out.ne(0).any(-1)
-        win_out[..., 0] += nudge.to(torch.uint8)
-        return win_out
+        with span("compose.context"):
+            st = self.config.stitch
+            hl, wl = left.shape[:2]
+            left_win = warp_ops.left_window(left, ty, tx, window)
+            w_l = warp_ops.left_weight_window(left_win, hl, wl, ty, tx,
+                                              window)
+            right_f = rgb_win.float()
+            if st.gain_compensation:
+                overlap = (w_l > 0.05) & (w_win > 0.05)
+                g = warp_ops._estimate_gain(left_win.float(), right_f,
+                                            overlap)
+                right_f = torch.clamp(torch.round(right_f * g), 0, 255)
+            if st.blend == "multiband":
+                win_out = warp_ops._multiband_compose(
+                    left_win.float(), right_f, w_l, w_win)
+                keep = (w_l > 0.0) | (w_win > 0.0)
+            else:
+                win_out = right_f.to(torch.uint8)
+                keep = rgb_win.ne(0).any(-1)
+            nudge = keep & ~win_out.ne(0).any(-1)
+            win_out[..., 0] += nudge.to(torch.uint8)
+            return win_out
 
     def stitch_pair_fast(self, left, right) -> Optional[torch.Tensor]:
         """Single-sync pair stitch. Returns the (canvas_h, canvas_w, 3) u8
@@ -351,7 +377,8 @@ class PairStitcher:
         of ``interpret_fused_row`` when the estimate is below the gate)."""
         left_d, right_d, pts, row_t, event = pending
         if event is not None:
-            event.synchronize()
+            with span("wait"):
+                event.synchronize()
         row = row_t.numpy()
         self.last_estimate = row
         if row[11] > 0.5:
@@ -363,9 +390,7 @@ class PairStitcher:
             )
             _, cropped = fast_path_crop(geo.row, canvas)
             return cropped
-        h = self.interpret_fused_row(
-            row, lambda: tuple(a.cpu().numpy() for a in pts)
-        )
+        h = self.interpret_fused_row(row, lambda: _to_host(*pts))
         if h is None:
             return None
         return self.composite(left_d, right_d, h)
@@ -382,11 +407,9 @@ class PairStitcher:
         right_d = self._to_device(right)
         if not self.print_timing:
             row_dev, pts = self._fused_estimate_impl(left_d, right_d)
-            row = row_dev.cpu().numpy()
+            row, = _to_host(row_dev)
             self.last_estimate = row
-            return self.interpret_fused_row(
-                row, lambda: tuple(a.cpu().numpy() for a in pts)
-            )
+            return self.interpret_fused_row(row, lambda: _to_host(*pts))
         kps_l = self.detect(left_d)
         kps_r = self.detect(right_d)
         matches = self.match(kps_r, kps_l, right_d, left_d)
@@ -646,9 +669,7 @@ def stitch_all_images_chain(
         if last_good == i - 1:
             _, pts = pending[i - 1]
             h = stitcher.interpret_fused_row(
-                rows[i - 1],
-                lambda pts=pts: tuple(a.cpu().numpy() for a in pts),
-            )
+                rows[i - 1], lambda pts=pts: _to_host(*pts))
         else:  # the previous pair failed: re-estimate against last_good
             h = stitcher.estimate_homography(devs[last_good], devs[i])
         if h is None:
@@ -872,19 +893,22 @@ def composite_global(
     `_weights_out` (tests only): a list that receives the final weight
     canvas as host numpy."""
     warp_ops._check_blend(config.stitch.blend)
-    t_mat, canvas_h, canvas_w = global_canvas_geometry(images, globals_h,
-                                                       anchor)
-    plan = global_warp_plan(devs, globals_h, anchor, t_mat, canvas_h,
-                            canvas_w)
-    has_alpha = config.stitch.blend in ("feather", "multiband")
+    with span("compose"):
+        with span("geometry"):
+            t_mat, canvas_h, canvas_w = global_canvas_geometry(
+                images, globals_h, anchor)
+            plan = global_warp_plan(devs, globals_h, anchor, t_mat, canvas_h,
+                                    canvas_w)
+        has_alpha = config.stitch.blend in ("feather", "multiband")
 
-    def warps():
-        for i, m_inv, window, lvl in plan:
-            yield window, cuda_warp.warp_packed(
-                mip_source(devs[i], lvl), m_inv, window, has_alpha=has_alpha)
+        def warps():
+            for i, m_inv, window, lvl in plan:
+                yield window, cuda_warp.warp_packed(
+                    mip_source(devs[i], lvl), m_inv, window,
+                    has_alpha=has_alpha)
 
-    return blend_global(devs[anchor], t_mat, canvas_h, canvas_w, warps(),
-                        config, _weights_out)
+        return blend_global(devs[anchor], t_mat, canvas_h, canvas_w, warps(),
+                            config, _weights_out)
 
 
 def global_warp_plan(devs, globals_h, anchor, t_mat, canvas_h, canvas_w):
@@ -935,12 +959,13 @@ def blend_global(anchor_img, t_mat, canvas_h, canvas_w, warps, config,
             cuda_compose.compose_chain_canvas(canvas, weight, rgb_win, w_win,
                                               window, st.blend)
         else:
-            _, new_w = warp_ops.blend_window_outputs(
-                canvas, rgb_win, w_win, 0, 0, wx0, wy0, canvas_h, canvas_w,
-                st.blend, w_left_win=weight[wy0:wy1, wx0:wx1],
-                gain=st.gain_compensation,
-            )
-            weight[wy0:wy1, wx0:wx1] = new_w
+            with span("compose.context"):
+                _, new_w = warp_ops.blend_window_outputs(
+                    canvas, rgb_win, w_win, 0, 0, wx0, wy0, canvas_h,
+                    canvas_w, st.blend, w_left_win=weight[wy0:wy1, wx0:wx1],
+                    gain=st.gain_compensation,
+                )
+                weight[wy0:wy1, wx0:wx1] = new_w
     if _weights_out is not None:
         _weights_out.append(weight.cpu().numpy())
     return fetch_image(canvas)

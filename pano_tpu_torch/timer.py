@@ -8,9 +8,26 @@ also appended to ``STAGE_RECORDS``, which the CLI's ``--json`` output
 dumps.
 
 CUDA work is asynchronous: a stage that launched kernels synchronizes its
-device before the clock stops (``synchronize``, or ``stage``'s
-``block_on`` list), where the JAX package called ``force_sync`` or
-``block_until_ready``. On the CPU there is nothing to wait for.
+device before the clock stops (``synchronize``), where the JAX package
+called ``force_sync`` or ``block_until_ready``. On the CPU there is
+nothing to wait for.
+
+``span`` marks the program's layers and steps for ``torch.profiler``: a
+``record_function`` range named ``pano.<name>`` while a profiler records
+(the CLI's ``PANO_TPU_PROFILE``, or a caller's own), and one shared
+do-nothing context otherwise, so that an unprofiled run pays a flag test
+a span. The ranges land in the profiler's trace beside the CUDA runtime
+and device events, on the same clock. The names:
+
+* ``detect``, ``match``, ``ransac`` (with ``ransac.search``, the
+  hypotheses' draw, solves, scoring and argmax, and ``ransac.finalize``,
+  the guard, inlier masks and refine), ``compose`` (with
+  ``compose.context``, the torch window work of multiband and gain),
+  ``mesh`` (a batch over the data axis): the layers;
+* ``geometry``: the canvas maths on the host;
+* ``upload``: a blocking copy of a host image to the device (an image
+  already there opens none);
+* ``wait``: each place where the host blocks on the device.
 
 ``fetch_image`` is the device-to-host copy of every panorama: a large
 CUDA tensor lands in page-locked memory from PyTorch's caching host
@@ -25,17 +42,29 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Optional
 
 import numpy as np
 import torch
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A ``torch.profiler.record_function`` range ``pano.<name>`` when a
+    profiler records, else one shared null context (see the module's
+    docstring for the names)."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function("pano." + name)
+    return _NO_SPAN
 
 
 def synchronize(device) -> None:
     """Wait for every kernel queued on `device` (a no-op off the GPU)."""
     device = torch.device(device)
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        with span("wait"):
+            torch.cuda.synchronize(device)
 
 
 # The JAX package's size below which a fetch is one plain copy.
@@ -62,7 +91,8 @@ def fetch_image(x) -> np.ndarray:
         raise ValueError(f"fetch_image copies from a CUDA or CPU tensor, "
                          f"not from {x.device}")
     if x.dim() == 0 or x.nbytes < PINNED_FETCH_MIN_BYTES:
-        return x.cpu().numpy()
+        with span("wait"):
+            return x.cpu().numpy()
     host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
     stream = torch.cuda.current_stream(x.device)
     # copy_ enqueues a device-to-host copy on the current stream of the
@@ -70,7 +100,8 @@ def fetch_image(x) -> np.ndarray:
     host.copy_(x, non_blocking=True)
     done = torch.cuda.Event()
     done.record(stream)
-    done.synchronize()
+    with span("wait"):
+        done.synchronize()
     return host.numpy()
 
 
@@ -105,9 +136,10 @@ def push_image(img, device) -> torch.Tensor:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     stream = _upload_stream(index)
-    with torch.cuda.stream(stream):
-        out = host.to(torch.device("cuda", index))
-    stream.synchronize()
+    with span("upload"):
+        with torch.cuda.stream(stream):
+            out = host.to(torch.device("cuda", index))
+        stream.synchronize()
     out.record_stream(torch.cuda.default_stream(index))
     return out
 
@@ -139,21 +171,3 @@ def print_stage(name: str, ms: float) -> None:
     STAGE_RECORDS.append({"stage": name, "ms": round(ms, 3)})
     print(f"{name}: {ms:.3f} ms", flush=True)
 
-
-@contextlib.contextmanager
-def stage(name: str, block_on: Optional[list] = None, enabled: bool = True):
-    """Time a stage; print the reference-format line on exit.
-
-    `block_on` is a mutable list the body may append tensors to; the
-    devices they live on are synchronized before the clock stops, so that
-    asynchronous kernel launches do not make stages look free.
-    """
-    t = Timer()
-    out = block_on if block_on is not None else []
-    try:
-        yield out
-    finally:
-        for device in {x.device for x in out if isinstance(x, torch.Tensor)}:
-            synchronize(device)
-        if enabled:
-            print_stage(name, t.elapsed())

@@ -482,6 +482,11 @@ def test_profile_hook_writes_a_chrome_trace(scene_dir, tmp_path,
     assert len(traces) == 1
     events = json.load(open(traces[0]))["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # The program's own layer spans (timer.span) are in the same trace.
+    spans = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"pano.upload", "pano.detect", "pano.match", "pano.ransac",
+            "pano.ransac.search", "pano.ransac.finalize", "pano.compose",
+            "pano.geometry"} <= spans
 
 
 def test_run_accepts_preloaded_tensors(scene_dir, tmp_path):

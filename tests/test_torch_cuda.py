@@ -434,6 +434,43 @@ def test_stitch_pair_fast_on_gpu_matches_cpu():
     assert float((d > 3).float().mean()) < 0.01
 
 
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["card_images", "host_images"])
+def test_stitch_pair_fast_waits_on_the_card_once(tmp_path, resident):
+    """Under torch.profiler, a stitch_pair_fast opens one pano.wait (the
+    estimate row's event) and an upload per host image, none for images
+    already on the card."""
+    import json
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pano_tpu_torch import PanoConfig, PairStitcher
+    from pano_tpu_torch.config import HarrisOptions
+
+    r = np.random.default_rng(57)
+    base = r.integers(0, 60, (128, 208, 3)).astype(np.uint8)
+    for _ in range(180):
+        y, x = r.integers(2, 118), r.integers(2, 198)
+        base[y:y + 6, x:x + 6] = r.integers(60, 255, 3)
+    left, right = base[:, 48:].copy(), base[:, :160].copy()
+    if resident:
+        left, right = (torch.from_numpy(a).cuda() for a in (left, right))
+    st = PairStitcher(PanoConfig(harris=HarrisOptions(max_keypoints=512)),
+                      print_timing=False, device="cuda")
+    st.stitch_pair_fast(left, right)      # builds the kernels
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got = st.stitch_pair_fast(left, right)
+    assert got is not None
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    names = [e["name"] for e in json.load(open(tmp_path / "t.json"))[
+        "traceEvents"] if e.get("cat") == "user_annotation"]
+    assert names.count("pano.wait") == 1
+    assert names.count("pano.upload") == (0 if resident else 2)
+    assert names.count("pano.ransac") == 1
+
+
 # K4b cases: (source shape, canvas-from-source map, canvas window).
 WARP_PACKED_CASES = {
     "projective": ((200, 300), PROJ, (3, 5, 240, 401)),

@@ -91,6 +91,64 @@ def test_per_name_totals_and_counts():
     assert "k_a" in top1 and "k_c" not in top1
 
 
+def _launch(ts, corr, tid=1):
+    return {**_x("cudaLaunchKernel", "cuda_runtime", 9, tid, ts, 1.0),
+            "args": {"correlation": corr}}
+
+
+def _kernel(name, ts, dur, corr, dev=0):
+    return {**_x(name, "kernel", dev, 7, ts, dur),
+            "args": {"correlation": corr}}
+
+
+# Host thread 1 opens pano.ransac at [0, 100) us with pano.ransac.search
+# [0, 60) and pano.ransac.finalize [60, 100) inside, and a second
+# pano.ransac [200, 210) nested in another at [200, 250); pano.wait at
+# [300, 340). Launches: 3 in search, 1 in finalize, 1 in the nested
+# ransac, 1 on another thread at 20 us (outside every range of its
+# thread), 1 outside any range. The card is busy [10, 30), [70, 80),
+# [205, 215) and [320, 330).
+STEPS = {"traceEvents": [
+    _x("pano.ransac", "user_annotation", 9, 1, 0.0, 100.0),
+    _x("pano.ransac.search", "user_annotation", 9, 1, 0.0, 60.0),
+    _x("pano.ransac.finalize", "user_annotation", 9, 1, 60.0, 40.0),
+    _x("pano.ransac", "user_annotation", 9, 1, 200.0, 50.0),
+    _x("pano.ransac", "user_annotation", 9, 1, 200.0, 10.0),
+    _x("pano.wait", "user_annotation", 9, 1, 300.0, 40.0),
+    _x("pano_bench.ransac", "user_annotation", 9, 1, 0.0, 400.0),
+    _launch(5.0, 1), _launch(8.0, 2), _launch(50.0, 3), _launch(65.0, 4),
+    _launch(205.0, 5), _launch(20.0, 6, tid=2), _launch(150.0, 7),
+    _kernel("k1", 10.0, 10.0, 1), _kernel("k2", 20.0, 10.0, 2),
+    _kernel("k4", 70.0, 10.0, 4), _kernel("k5", 205.0, 10.0, 5),
+    _x("Memcpy DtoH", "gpu_memcpy", 0, 8, 320.0, 10.0),
+]}
+
+
+def test_program_steps_of_a_canned_trace():
+    steps = tts.program_steps(STEPS)
+    assert set(steps) == {"pano.ransac", "pano.ransac.search",
+                          "pano.ransac.finalize", "pano.wait"}
+    r = steps["pano.ransac"]
+    assert (r["ranges"], r["launches"]) == (3, 5)
+    assert r["host_ms"] == pytest.approx(0.150)
+    assert r["kernel_ms"] == pytest.approx(0.040)
+    # Idle [0, 10) [30, 70) [80, 100) inside the first ransac, [200,
+    # 205) [215, 250) inside the second.
+    assert r["idle_ms"] == pytest.approx(0.110)
+    s = steps["pano.ransac.search"]
+    assert (s["launches"], s["kernel_ms"]) == (3, pytest.approx(0.020))
+    f = steps["pano.ransac.finalize"]
+    assert (f["launches"], f["kernel_ms"]) == (1, pytest.approx(0.010))
+    w = steps["pano.wait"]
+    assert (w["ranges"], w["launches"], w["idle_ms"]) == \
+        (1, 0, pytest.approx(0.030))
+    # A window clips the device time and drops the ranges outside it.
+    clipped = tts.program_steps(STEPS, window=(0.0, 25.0))
+    assert set(clipped) == {"pano.ransac", "pano.ransac.search"}
+    assert clipped["pano.ransac"]["kernel_ms"] == pytest.approx(0.015)
+    assert tts.program_steps(TRACE) == {}
+
+
 def test_host_fallback_on_a_cpu_profiler_trace(tmp_path):
     from torch.profiler import ProfilerActivity, profile
 
@@ -159,5 +217,10 @@ def test_a_trace_written_by_the_port_cli(tmp_path, monkeypatch):
     lines = out.stdout.splitlines()
     assert lines[0] == f"reading {path}"
     assert "-- thread:" in out.stdout and "aten::" not in out.stdout
+    assert "=== program steps (pano. ranges) ===" in out.stdout
+    steps = tts.program_steps(trace)
+    assert steps["pano.ransac"]["ranges"] == 1
+    assert steps["pano.detect"]["ranges"] == 2
+    assert steps["pano.upload"]["ranges"] == 2
     assert lines[-1] == ("device busy (union over streams, summed over "
                          "devices): 0.000 ms")

@@ -18,9 +18,19 @@ the max over them), so a device's busy time is the union of its events
 over every stream, and the total sums the devices. Without device events
 (a CPU trace) the table falls back to the host's `cpu_op` events, and
 the device-busy time is 0.0.
+
+The port opens `record_function` ranges named `pano.<step>` at its
+layers and host steps while a profiler records (`timer.span`); when the
+trace holds any, a last table gives per step name: its ranges, the host
+ms of its outermost ranges, the CUDA runtime launches its ranges hold on
+their own thread (a CUDA graph's launch counts once), the device ms of
+the kernels those launches started (by correlation id), and the ms in
+which a device sat idle while an outermost range was open (the mean over
+the devices).
 """
 
 import argparse
+import bisect
 import collections
 import glob
 import gzip
@@ -29,6 +39,12 @@ import os
 import sys
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+SPAN_PREFIX = "pano."
+LAUNCH_NAMES = frozenset((
+    "cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+    "cuLaunchKernelEx", "cudaLaunchCooperativeKernel", "cudaGraphLaunch",
+    "cuGraphLaunch",
+))
 
 
 def find_trace(path: str) -> str:
@@ -55,22 +71,21 @@ def _complete(trace: dict, cats) -> list:
             if e.get("ph") == "X" and e.get("cat") in cats and "dur" in e]
 
 
+def _union(spans) -> list:
+    """The union of (start, end) intervals as disjoint sorted intervals."""
+    out: list = []
+    for s, e in sorted(spans):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        else:
+            out.append([s, e])
+    return out
+
+
 def _busy_union(spans) -> float:
     """Union length of (start, end) intervals: overlapping events (two
     streams at once, or nested ones) are counted once."""
-    spans = sorted(spans)
-    busy = 0
-    cur_s, cur_e = None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy += cur_e - cur_s
-    return busy
+    return sum(e - s for s, e in _union(spans))
 
 
 def _by(events, key) -> dict:
@@ -92,6 +107,96 @@ def device_busy_ms(trace: dict) -> float:
     return sum(_busy_union(_spans(evs))
                for evs in _by(_complete(trace, DEVICE_CATS), "pid").values()
                ) / 1e3
+
+
+def _overlap(a, b) -> float:
+    """Length of the intersection of two disjoint sorted interval lists."""
+    total, i, j = 0.0, 0, 0
+    while i < len(a) and j < len(b):
+        total += max(0.0, min(a[i][1], b[j][1]) - max(a[i][0], b[j][0]))
+        if a[i][1] < b[j][1]:
+            i += 1
+        else:
+            j += 1
+    return total
+
+
+def program_steps(trace: dict, window=None) -> dict:
+    """Per `pano.` step name: {"ranges", "host_ms", "launches",
+    "kernel_ms", "idle_ms"} (see the module docstring), over the ranges
+    that overlap `window` ((start, end) in us; the whole trace when
+    None). Device time is clipped to the window. {} when the trace holds
+    no `pano.` range."""
+    complete = [e for e in trace.get("traceEvents", [])
+                if e.get("ph") == "X" and "dur" in e]
+    if window is None:
+        window = (min((float(e["ts"]) for e in complete), default=0.0),
+                  max((float(e["ts"]) + float(e["dur"]) for e in complete),
+                      default=0.0))
+    lo, hi = window
+    ranges = collections.defaultdict(list)    # name -> [(s, e, tid)]
+    launches = []                              # (ts, correlation, tid)
+    device = [e for e in complete if e.get("cat") in DEVICE_CATS]
+    for e in complete:
+        s, end = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if e.get("cat") == "user_annotation" \
+                and e["name"].startswith(SPAN_PREFIX) and end > lo \
+                and s < hi:
+            ranges[e["name"]].append((s, end, e.get("tid")))
+        elif e.get("cat") in ("cuda_runtime", "cuda_driver") \
+                and e["name"] in LAUNCH_NAMES:
+            launches.append((s, (e.get("args") or {}).get("correlation"),
+                             e.get("tid")))
+    busy = {}
+    for dev, evs in _by(device, "pid").items():
+        busy[dev] = _union((max(s, lo), min(e, hi)) for s, e in _spans(evs)
+                           if min(e, hi) > max(s, lo))
+    idle = {dev: [(a, b) for a, b in zip([lo] + [e for _, e in u],
+                                         [s for s, _ in u] + [hi]) if b > a]
+            for dev, u in busy.items()}
+    kernels = collections.defaultdict(float)   # correlation -> clipped us
+    for e in device:
+        corr = (e.get("args") or {}).get("correlation")
+        s, end = float(e["ts"]), float(e["ts"]) + float(e["dur"])
+        if e.get("cat") == "kernel" and corr is not None:
+            kernels[corr] += max(0.0, min(end, hi) - max(s, lo))
+    out = {}
+    for name, rs in ranges.items():
+        outer = collections.defaultdict(list)  # tid -> disjoint, sorted
+        for s, e, tid in sorted(rs, key=lambda r: (r[0], -r[1])):
+            if not outer[tid] or s >= outer[tid][-1][1]:
+                outer[tid].append((s, e))
+        starts = {tid: [s for s, _ in spans] for tid, spans in outer.items()}
+        inside = []
+        for ts, corr, tid in launches:
+            k = bisect.bisect_right(starts.get(tid, []), ts) - 1
+            if k >= 0 and ts <= outer[tid][k][1]:
+                inside.append(corr)
+        flat = [r for spans in outer.values() for r in spans]
+        held = _union((max(a, lo), min(b, hi)) for a, b in flat
+                      if min(b, hi) > max(a, lo))
+        out[name] = {
+            "ranges": len(rs),
+            "host_ms": sum(e - s for s, e in flat) / 1e3,
+            "launches": len(inside),
+            "kernel_ms": sum(kernels.get(c, 0.0) for c in set(inside)
+                             if c is not None) / 1e3,
+            "idle_ms": (sum(_overlap(g, held) for g in idle.values())
+                        / len(idle) / 1e3) if idle else 0.0,
+        }
+    return out
+
+
+def _steps_table(steps: dict) -> None:
+    print("\n=== program steps (pano. ranges) ===")
+    width = max(len(n) for n in steps)
+    print(f"  {'step':<{width}}  {'ranges':>7}  {'host ms':>10}  "
+          f"{'launches':>8}  {'kernel ms':>10}  {'idle ms':>10}")
+    for name in sorted(steps):
+        v = steps[name]
+        print(f"  {name:<{width}}  {v['ranges']:>7}  {v['host_ms']:10.3f}  "
+              f"{v['launches']:>8}  {v['kernel_ms']:10.3f}  "
+              f"{v['idle_ms']:10.3f}")
 
 
 def _table(events, top: int) -> None:
@@ -143,6 +248,9 @@ def main() -> int:
     print(f"reading {path}")
     trace = load(path)
     summarize(trace, args.top, args.by_stream)
+    steps = program_steps(trace)
+    if steps:
+        _steps_table(steps)
     print(f"\ndevice busy (union over streams, summed over devices): "
           f"{device_busy_ms(trace):.3f} ms")
     return 0
