@@ -1596,7 +1596,7 @@ def main() -> None:
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.ops import (
         cuda_compose, cuda_eigh, cuda_gather, cuda_harris, cuda_match,
-        cuda_warp, harris, match,
+        cuda_warp, harris, match, ransac,
     )
     from pano_tpu_torch.ops import warp as warp_ops
     from pano_tpu_torch.pipeline import fused_canvas_geometry
@@ -1916,10 +1916,15 @@ def main() -> None:
         ata_seen.append(ata.clone())
         return k7(ata)
 
+    # The default table injected: the eager estimate calls the wrapper (a
+    # replay of the estimate's CUDA graph calls no Python).
+    r_opts = DEFAULT_CONFIG.ransac
+    table = ransac.default_sampler(r_opts.num_iterations, r_opts.num_samples,
+                                   r_opts.seed, DEVICE)
     cuda_eigh.smallest_eigvec9 = record
     try:
-        PairStitcher(DEFAULT_CONFIG, print_timing=False,
-                     device=DEVICE)._fused_estimate_impl(left, right)
+        PairStitcher(DEFAULT_CONFIG, print_timing=False, device=DEVICE,
+                     sampler=table)._fused_estimate_impl(left, right)
     finally:
         cuda_eigh.smallest_eigvec9 = k7
     ata, = ata_seen
@@ -1967,9 +1972,6 @@ def main() -> None:
 
     # RANSAC's default table, JAX's randint, made on the card from a
     # device n_valid: the CPU's, for every span the pair can give.
-    from pano_tpu_torch.ops import ransac
-
-    r_opts = DEFAULT_CONFIG.ransac
     shape = (r_opts.num_iterations, r_opts.num_samples)
     on_card = ransac.default_sampler(*shape, r_opts.seed, DEVICE)
     on_cpu = ransac.default_sampler(*shape, r_opts.seed, "cpu")

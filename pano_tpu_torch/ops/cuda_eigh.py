@@ -41,8 +41,9 @@ import torch
 from pano_tpu_torch import _build
 
 # Kernel launches since the last reset: tests and chip_smoke.py read it to
-# prove that the kernel path ran. It is not tracing; the profiler's spans
-# (timer.span) are.
+# prove that the kernel path ran. A replay of RANSAC's CUDA graph adds the
+# launches the graph holds (ops/ransac.py). It is not tracing; the
+# profiler's spans (timer.span) are.
 launches = 0
 
 # Fixed, so that nothing is read on the host: the refine's matrices and

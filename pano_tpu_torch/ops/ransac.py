@@ -21,11 +21,25 @@ reduces them modulo ``n_valid`` on the device, with no host sync. The
 hypothesis-sharded search draws each shard's table from
 ``fold_in(PRNGKey(seed), shard)`` (``key_sampler``). Tests may inject
 another table through ``sampler=``.
+
+Launching: ``ransac_homography`` runs one function, ``_estimate`` (the
+search, then ``finalize_ransac``). On a CUDA device with the default table
+(``sampler=None``) every shape in it is fixed by the configuration, so it
+is captured once per (device, stream, input shapes and dtypes, options)
+as a CUDA graph and replayed: the inputs are copied into the graph's own
+buffers, one graph launch runs the ~480 kernels the host would otherwise
+enqueue one by one, and the outputs come back as copies. The same kernels
+run on the same inputs in the same order, so the result is the eager
+one's bit for bit. Anything else (the CPU, an injected table, the
+hypothesis-sharded search, which calls the two halves itself) runs
+``_estimate`` as it stands.
 """
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -356,19 +370,28 @@ def ransac_homography(
     opts: RansacOptions,
     sampler: Optional[Sampler] = None,
 ) -> RansacResult:
-    """Estimate H mapping src -> dst: RANSAC, then optional refine."""
+    """Estimate H mapping src -> dst: RANSAC, then optional refine. On
+    the card with the default table, as a replay of the estimate's CUDA
+    graph (see the module's docstring)."""
     with span("ransac"):
-        if sampler is None:
-            sampler = default_sampler(
-                opts.num_iterations, opts.num_samples, opts.seed,
-                pts_src.device
-            )
-        best_h, best_count = ransac_best_hypothesis(
-            pts_src, pts_dst, valid, opts.num_iterations, opts.num_samples,
-            opts.distance_threshold, sampler,
+        if sampler is None and pts_src.device.type == "cuda":
+            return _graphed_estimate(pts_src, pts_dst, valid, opts)
+        return _estimate(pts_src, pts_dst, valid, opts, sampler)
+
+
+def _estimate(pts_src, pts_dst, valid, opts: RansacOptions,
+              sampler: Optional[Sampler] = None) -> RansacResult:
+    """The whole estimate, launch by launch: the hypotheses' search, then
+    the guard, masks and refine."""
+    if sampler is None:
+        sampler = default_sampler(
+            opts.num_iterations, opts.num_samples, opts.seed, pts_src.device
         )
-        return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid,
-                               opts)
+    best_h, best_count = ransac_best_hypothesis(
+        pts_src, pts_dst, valid, opts.num_iterations, opts.num_samples,
+        opts.distance_threshold, sampler,
+    )
+    return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid, opts)
 
 
 def finalize_ransac(
@@ -406,3 +429,107 @@ def finalize_ransac(
             H=best_h, inlier_count=best_count, num_matches=n_valid,
             inlier_mask=mask0, ok=ok,
         )
+
+
+# --- the estimate as a CUDA graph --------------------------------------------
+
+# Engagement of the graph since the last reset: tests and chip_smoke.py
+# read them. It is not tracing; the profiler's pano.ransac.replay is.
+graph_captures = 0
+graph_replays = 0
+
+# Graphs kept, the least recently used dropped first. Each holds a private
+# memory pool with the estimate's temporaries (the (N, M) scoring planes:
+# 230 MiB reserved at K = 8192 and 1000 hypotheses on an H100).
+GRAPH_CACHE_SIZE = 4
+
+_graphs: "collections.OrderedDict[tuple, _GraphedEstimate]" = \
+    collections.OrderedDict()
+_graphs_lock = threading.Lock()
+
+
+@functools.lru_cache(maxsize=None)
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The side stream every capture on `device` warms up and captures on,
+    one per device, so that cuBLAS's workspace for it is made once, before
+    any capture."""
+    return torch.cuda.Stream(device)
+
+
+class _GraphedEstimate:
+    """``_estimate`` captured for one key: the graph, its input buffers
+    and captured outputs, and every tensor the graph reads that it did not
+    allocate (the default table's bit planes and sqrt(2), which the lru
+    caches may drop: a freed, reused address would corrupt later replays).
+    Dropping the entry drops the graph and its pool."""
+
+    def __init__(self, inputs, opts: RansacOptions):
+        """Make the buffers and the held tensors on the caller's stream."""
+        device = inputs[0].device
+        self.held = (
+            randint_bits_key(prng_key(opts.seed), opts.num_iterations,
+                             opts.num_samples, device),
+            _sqrt2(inputs[0].dtype, device),
+        )
+        self.inputs = tuple(t.clone(memory_format=torch.contiguous_format)
+                            for t in inputs)
+        self.opts = opts
+        self.graph = torch.cuda.CUDAGraph()
+
+    def capture(self) -> RansacResult:
+        """Warm up (cuBLAS on the side stream, K7's library, the tables)
+        and capture, both on the side stream; returns the warm-up's
+        result, which is the first call's."""
+        global graph_captures
+        device = self.inputs[0].device
+        stream = torch.cuda.current_stream(device)
+        side = _capture_stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            first = _estimate(*self.inputs, self.opts)
+        for t in first:
+            t.record_stream(stream)
+        before = cuda_eigh.launches
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            self.outputs = _estimate(*self.inputs, self.opts)
+        # A capture runs nothing; each replay runs the K7 launches it holds.
+        self.k7_launches = cuda_eigh.launches - before
+        cuda_eigh.launches = before
+        stream.wait_stream(side)
+        graph_captures += 1
+        return first
+
+    def replay(self, inputs) -> RansacResult:
+        """Copy `inputs` in, replay, and return copies of the outputs (a
+        later replay overwrites the captured ones), all on the current
+        stream with no host sync."""
+        global graph_replays
+        for buf, t in zip(self.inputs, inputs):
+            buf.copy_(t)
+        with span("ransac.replay"):
+            self.graph.replay()
+        cuda_eigh.launches += self.k7_launches
+        graph_replays += 1
+        return RansacResult(*(t.clone() for t in self.outputs))
+
+
+def _graphed_estimate(pts_src, pts_dst, valid,
+                      opts: RansacOptions) -> RansacResult:
+    """``_estimate`` with the default table on the card: the first call
+    of a key captures (its result is the warm-up's), later calls replay."""
+    inputs = (pts_src, pts_dst, valid)
+    device = pts_src.device
+    key = (device, torch.cuda.current_stream(device).cuda_stream, opts,
+           tuple((t.shape, t.dtype) for t in inputs))
+    with _graphs_lock:
+        entry = _graphs.get(key)
+        if entry is not None:
+            _graphs.move_to_end(key)
+            return entry.replay(inputs)
+        entry = _GraphedEstimate(inputs, opts)
+        first = entry.capture()
+        _graphs[key] = entry
+        if len(_graphs) > GRAPH_CACHE_SIZE:
+            _graphs.popitem(last=False)
+        return first

@@ -21,8 +21,10 @@ and device events, on the same clock. The names:
 
 * ``detect``, ``match``, ``ransac`` (with ``ransac.search``, the
   hypotheses' draw, solves, scoring and argmax, and ``ransac.finalize``,
-  the guard, inlier masks and refine), ``compose`` (with
-  ``compose.context``, the torch window work of multiband and gain),
+  the guard, inlier masks and refine, where the estimate runs eagerly or
+  is captured; ``ransac.replay``, the replay of its CUDA graph),
+  ``compose`` (with ``compose.context``, the torch window work of
+  multiband and gain),
   ``mesh`` (a batch over the data axis): the layers;
 * ``geometry``: the canvas maths on the host;
 * ``upload``: a blocking copy of a host image to the device (an image

@@ -1469,7 +1469,10 @@ def _planted_normal_matrices():
         seen.append(ata.clone())
         return kernel(ata)
 
-    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    # The default table injected: the eager estimate calls the wrapper on
+    # every pair (a replay of the estimate's graph calls no Python).
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda",
+                      sampler=_default_table(DEFAULT_CONFIG.ransac))
     pairs = [tuple(torch.from_numpy(im).cuda()
                    for im in chip_smoke.synthetic_pair(0))]
     pairs += _shifted_pairs(97)
@@ -1559,3 +1562,126 @@ def test_estimate_paths_do_not_sync_on_the_card(path):
     assert syncs == []
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
+
+
+# --- the estimate as a CUDA graph --------------------------------------------
+
+
+def _default_table(r_opts):
+    """The default table, given explicitly: ransac_homography then runs
+    the eager estimate."""
+    from pano_tpu_torch.ops import ransac
+
+    return ransac.default_sampler(r_opts.num_iterations, r_opts.num_samples,
+                                  r_opts.seed, "cuda")
+
+
+def _planted_and_strip_points():
+    """The match points of chip_smoke.py's planted 4156x3117 pair and of
+    its strip's three adjacent pairs, as the fused estimate hands them to
+    RANSAC (found by the eager estimate)."""
+    import sys
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    if _REPO not in sys.path:
+        sys.path.insert(0, _REPO)
+    import chip_smoke
+
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda",
+                      sampler=_default_table(DEFAULT_CONFIG.ransac))
+    pair = [torch.from_numpy(im).cuda() for im in chip_smoke.synthetic_pair(0)]
+    strip = [torch.from_numpy(im).cuda()
+             for im in chip_smoke.synthetic_strip(0)[1]]
+    pairs = [tuple(pair)] + list(zip(strip[:-1], strip[1:]))
+    return [st._fused_estimate_impl(a, b)[1] for a, b in pairs]
+
+
+def _assert_equal_results(got, want):
+    for name, g, w in zip(got._fields, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_graphed_estimate_equals_the_eager_one():
+    """On the planted pair and the strip's three pairs, the graphed
+    ransac_homography (its capture's result, then replays) is torch.equal
+    to the eager estimate with the explicit default table in every
+    field."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import ransac
+
+    r = DEFAULT_CONFIG.ransac
+    table = _default_table(r)
+    replays = ransac.graph_replays
+    for pts in _planted_and_strip_points():
+        want = ransac._estimate(*pts, r, table)
+        for _ in range(2):
+            _assert_equal_results(ransac.ransac_homography(*pts, r), want)
+        assert bool(want.ok)
+    assert ransac.graph_replays >= replays + 7
+
+
+def test_graphed_results_survive_later_replays():
+    """A result a caller holds is a copy: two estimates on different
+    pairs, then the first result is still the first pair's."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import ransac
+
+    r = DEFAULT_CONFIG.ransac
+    a, b = _planted_and_strip_points()[:2]
+    ransac.ransac_homography(*a, r)     # the key's capture, if not yet
+    replays = ransac.graph_replays
+    first = ransac.ransac_homography(*a, r)
+    second = ransac.ransac_homography(*b, r)
+    torch.cuda.synchronize()
+    assert ransac.graph_replays == replays + 2
+    assert not torch.equal(first.H, second.H)
+    _assert_equal_results(first, ransac._estimate(*a, r, _default_table(r)))
+    _assert_equal_results(second, ransac._estimate(*b, r, _default_table(r)))
+
+
+def test_graph_is_captured_once_per_key():
+    """One capture, then only replays, for repeated calls of one key;
+    other options (refine off) and another K each get their own graph;
+    each result equal to the eager estimate."""
+    from pano_tpu_torch.config import RansacOptions
+    from pano_tpu_torch.ops import ransac
+
+    pts = _planted_and_strip_points()[1]
+    # K + 128: the same valid rows, 128 more invalid ones
+    padded = tuple(torch.cat([t, torch.zeros_like(t[:128])]) for t in pts)
+    for opts, p in ((RansacOptions(seed=4242), pts),
+                    (RansacOptions(seed=4242, refine=False), pts),
+                    (RansacOptions(seed=4242), padded)):
+        captures, replays = ransac.graph_captures, ransac.graph_replays
+        want = ransac._estimate(*p, opts, _default_table(opts))
+        for _ in range(4):
+            _assert_equal_results(ransac.ransac_homography(*p, opts), want)
+        assert (ransac.graph_captures - captures,
+                ransac.graph_replays - replays) == (1, 3)
+    assert len(ransac._graphs) <= ransac.GRAPH_CACHE_SIZE
+
+
+def test_dispatch_in_flight_equals_the_eager_estimate():
+    """dispatch with three pairs in flight, each on the graphed estimate,
+    retires the panoramas and rows of the eager estimate's
+    stitch_pair_fast (the parent's path)."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+    from pano_tpu_torch.ops import ransac
+
+    pairs = _shifted_pairs(99)
+    eager = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda",
+                         sampler=_default_table(DEFAULT_CONFIG.ransac))
+    want = []
+    for left, right in pairs:
+        want.append((eager.stitch_pair_fast(left, right),
+                     eager.last_estimate.copy()))
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    st.stitch_pair_fast(*pairs[0])      # the key's capture, if not yet
+    replays = ransac.graph_replays
+    pending = [st.dispatch(left, right) for left, right in pairs]
+    assert ransac.graph_replays == replays + 3
+    for p, (want_pano, want_row) in zip(pending, want):
+        pano = st.retire(p)
+        assert torch.equal(pano, want_pano)
+        np.testing.assert_array_equal(st.last_estimate, want_row)

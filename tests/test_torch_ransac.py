@@ -90,6 +90,37 @@ def test_ransac_homography_matches_jax_with_injected_samples():
     np.testing.assert_allclose(ht / ht[2, 2], h_true, rtol=0.02, atol=0.5)
 
 
+@pytest.mark.parametrize("refine", [True, False])
+@pytest.mark.parametrize("table", ["default", "injected"])
+def test_estimate_off_the_card_is_eager_and_never_captures(table, refine):
+    """Off the card, with the default table or an injected one,
+    ransac_homography is the eager estimate: no CUDA graph is captured or
+    replayed, the result is _estimate's with the explicit table, field by
+    field, and the JAX package's (the default table is JAX's own draw)."""
+    rng = np.random.default_rng(36)
+    src, dst, valid, _ = _correspondences(rng)
+    jopts = JaxRansacOptions(num_iterations=300, seed=11, refine=refine)
+    topts = RansacOptions(num_iterations=300, seed=11, refine=refine)
+    pts = tuple(torch.from_numpy(x) for x in (src, dst, valid))
+    explicit = TR.default_sampler(300, 4, 11, "cpu")
+    rt = TR.ransac_homography(
+        *pts, topts, sampler=None if table == "default" else explicit)
+    assert (TR.graph_captures, TR.graph_replays, len(TR._graphs)) == (0, 0, 0)
+    for got, want in zip(rt, TR._estimate(*pts, topts, explicit)):
+        assert torch.equal(got, want)
+    rj = JR.ransac_homography(
+        jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), jopts
+    )
+    assert bool(rt.ok) and bool(rj.ok)
+    assert int(rt.inlier_count) == int(rj.inlier_count)
+    assert int(rt.num_matches) == int(rj.num_matches) == 250
+    np.testing.assert_allclose(rt.H.numpy(), np.asarray(rj.H), rtol=1e-4,
+                               atol=1e-7)
+    np.testing.assert_array_equal(
+        rt.inlier_mask.numpy(), np.asarray(rj.inlier_mask)
+    )
+
+
 def test_best_hypothesis_matches_jax():
     """The core alone (no refine): the same winning hypothesis."""
     rng = np.random.default_rng(34)
