@@ -13,9 +13,13 @@ is a file of its own under this folder, found by its name:
 * ``configs/<config>.json``: the deployment (image sizes, the pipeline's
   options, what was assumed or reduced), and ``limits/<config>.json``
   the limits of the comparison that decides ``correct``;
-* ``traffic/<traffic>.json``: the mix one of the general loops of
-  ``drivers.py`` reads (pool, planted offsets, depth, batch, sampling);
-* ``metrics/<metric>.py``: a per-layer metric's reader of the trace;
+* ``traffic/<traffic>.json``: the mix one of the general loops reads
+  (pool, planted offsets, depth, batch, sampling, which pairs a
+  panorama estimates), the loop named by its "driver": one of
+  ``drivers.py``, or a file ``loops/<driver>.py`` of its own;
+* ``metrics/<metric>.py``: a per-layer metric's reader of the trace (the
+  harness's layer spans, the program's ``pano.`` ranges, the device);
+* ``tests/shrunk/<cell>.json``: a cell's sizes for the CPU tests;
 * ``kernel_steps.json`` and ``spans.json``: which trace kernels belong
   to which step of the roofline, and which program calls get a layer
   span.

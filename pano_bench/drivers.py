@@ -25,6 +25,21 @@ host where the entry returns numpy.
 * ``pair_batched``: ``parallel/shard.py``'s ``stitch_pairs_batched`` on
   batches of ``batch`` pairs over a ``make_mesh(*mesh)`` of the cell's
   devices.
+
+A loop that ``DRIVERS`` does not hold is a file of its own,
+``loops/<driver>.py`` (``loop_of``), so that a cell with a loop of its
+own is added by files alone. The file defines ``make(run)``, which
+returns the loop as a ``DRIVERS`` entry does, and may define
+``capture(run)``, a context that records what each panorama was placed
+with (built with ``trace.wrapped``, as ``_CAPTURES``' entries are), and
+``SPANS``, layer spans of its own entry's calls in ``spans.json``'s
+form, installed with those of ``spans.json`` in the traced run.
+
+An answer's placement is each image's homography into image 0's frame.
+Where the entry frames the panorama in another image's, the anchor, the
+capture converts it (``inv(g_0) @ g_i``, all None when image 0 was left
+out) and the answer carries the anchor (``_answer``'s `anchor`), which
+the reference draws first and whose edges it does not band.
 """
 
 from __future__ import annotations
@@ -32,7 +47,8 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import deque
-from typing import Callable, Dict, List
+from types import ModuleType
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -96,11 +112,22 @@ NO_SAMPLE = Sample({}, {}, False)
 
 
 def _answer(scene: int, occurrence: int, pano, placed, sample: Sample,
-            t0: float, t1: float) -> dict:
+            t0: float, t1: float, anchor: int = 0) -> dict:
     kept = pano is not None and sample.wants(scene, occurrence)
     return {"scene": scene, "placed": placed if pano is not None else None,
             "pano": sample.take(scene, pano) if kept else None,
-            "t0": t0, "t1": t1}
+            "t0": t0, "t1": t1, "anchor": anchor}
+
+
+def in_image0_frame(globals_h) -> List[Optional[np.ndarray]]:
+    """Placements into another image's frame as placements into image
+    0's: ``inv(g_0) @ g_i``, None for an image left out, all None when
+    image 0 was left out."""
+    if globals_h[0] is None:
+        return [None] * len(globals_h)
+    back = np.linalg.inv(np.asarray(globals_h[0], np.float64))
+    return [None if g is None else back @ np.asarray(g, np.float64)
+            for g in globals_h]
 
 
 def _pair_placed(row) -> List[np.ndarray]:
@@ -267,13 +294,27 @@ _CAPTURES = {
 }
 
 
-def captures(driver: str, run: Run):
+def loop_of(driver: str, spec) -> Tuple[Callable, Optional[ModuleType]]:
+    """(make, loop file): `driver`'s ``make(run)`` from ``DRIVERS``, with
+    no loop file, else from ``spec.loop(driver)``, the module of
+    ``loops/<driver>.py``."""
+    if driver in DRIVERS:
+        return DRIVERS[driver], None
+    found = spec.loop(driver)
+    return found.make, found
+
+
+def captures(driver: str, run: Run, found: Optional[ModuleType] = None):
     """The wrappers that record what the driver's entry placed each
-    panorama with, where the entry does not return it (a context)."""
-    if driver not in _CAPTURES:
-        return contextlib.nullcontext()
-    target, factory = _CAPTURES[driver]
-    return wrapped([(target, factory(run))])
+    panorama with, where the entry does not return it (a context): its
+    ``_CAPTURES`` entry, else the ``capture`` of its loop file `found`,
+    else none."""
+    if driver in _CAPTURES:
+        target, factory = _CAPTURES[driver]
+        return wrapped([(target, factory(run))])
+    if found is not None and hasattr(found, "capture"):
+        return found.capture(run)
+    return contextlib.nullcontext()
 
 
 def count(n: int) -> Stop:

@@ -3,14 +3,15 @@
 The reference imports nothing of the program and takes nothing it made:
 from a scene's images and their planted homographies it draws the
 panorama that the stitch's semantics demand. The canvas is the ceiling
-of the union of the warped image rectangles in the anchor's (image 0's)
-frame; each image is warped onto it through the inverse of its
-homography with bilinear sampling, the anchor first and the others in
-order over it, a black sample letting the canvas show through (the
-reference's overlay). Every image is a crop of one scene, so any blend
-of the pixels that overlap is that scene's pixel: the same drawing is
-the reference of overlay, feather and multiband alike, and where they
-depart from it near a seam is what the pixel limit allows.
+of the union of the warped image rectangles in image 0's frame (the
+union, and so the canvas, is the same in any image's frame); each image
+is warped onto it through the inverse of its homography with bilinear
+sampling, the anchor (image 0 unless the answer names another) first
+and the others in order over it, a black sample letting the canvas show
+through (the reference's overlay). Every image is a crop of one scene,
+so any blend of the pixels that overlap is that scene's pixel: the same
+drawing is the reference of overlay, feather and multiband alike, and
+where they depart from it near a seam is what the pixel limit allows.
 
 ``dtype`` is the precision of the geometry and the sampling: float32,
 the configuration's, for the reference; bfloat16, the next below, for
@@ -25,9 +26,9 @@ Numbers compared, each against its limit from ``limits/<config>.json``:
   the canvas's height or width from the reference's;
 * ``pixel_max_d``: over the sampled panoramas, the largest difference of
   a channel from the reference's, over their common extent, outside a
-  band of 2 px across each placed image's edge (an estimate a
-  thousandth of a pixel off samples a sliver of the black outside
-  there);
+  band of 2 px across the edge of each placed image but the anchor (an
+  estimate a thousandth of a pixel off samples a sliver of the black
+  outside there; the anchor is copied, not sampled);
 * ``missing``: panoramas that came back empty (None).
 """
 
@@ -72,10 +73,11 @@ def _to_dtype(m: np.ndarray, dtype, device) -> torch.Tensor:
 
 
 def panorama(images: Sequence[torch.Tensor], globals_h: Sequence[np.ndarray],
-             dtype=torch.float32) -> torch.Tensor:
+             dtype=torch.float32, anchor: int = 0) -> torch.Tensor:
     """The (canvas_h, canvas_w, 3) uint8 reference panorama of `images`
     (tensors on one device) placed by `globals_h` into image 0's frame,
-    its geometry and sampling computed in `dtype`."""
+    its geometry and sampling computed in `dtype`: image `anchor` drawn
+    first, the others in order over it."""
     dev = images[0].device
     corners = []
     for img, g in zip(images, globals_h):
@@ -94,7 +96,9 @@ def panorama(images: Sequence[torch.Tensor], globals_h: Sequence[np.ndarray],
                          device=dev)
     shift = np.array([[1.0, 0.0, -float(lo[0].float())],
                       [0.0, 1.0, -float(lo[1].float())], [0.0, 0.0, 1.0]])
-    for img, g, cw in zip(images, globals_h, corners):
+    order = [anchor] + [i for i in range(len(images)) if i != anchor]
+    for i in order:
+        img, g, cw = images[i], globals_h[i], corners[i]
         m_inv = _to_dtype(np.linalg.inv(shift @ np.asarray(g, np.float64)),
                           dtype, dev)
         cw = cw - lo
@@ -137,16 +141,18 @@ def _warp_over(canvas, img, m_inv, x0, y0, x1, y1, dtype) -> None:
     region[write] = val[write]
 
 
-def edge_band(shape, images, globals_h) -> torch.Tensor:
+def edge_band(shape, images, globals_h, anchor: int = 0) -> torch.Tensor:
     """(canvas_h, canvas_w) bool: BAND px on each side of the edges of
-    each image after the first, placed by the translations `globals_h`
+    each image but image `anchor`, placed by the translations `globals_h`
     (planted ones) in a canvas whose origin is the union's top-left
     corner."""
     ch, cw = shape
     band = torch.zeros((ch, cw), dtype=torch.bool)
     lo_x = min(0.0, min(float(g[0, 2]) for g in globals_h))
     lo_y = min(0.0, min(float(g[1, 2]) for g in globals_h))
-    for img, g in list(zip(images, globals_h))[1:]:
+    for i, (img, g) in enumerate(zip(images, globals_h)):
+        if i == anchor:
+            continue
         h, w = img.shape[:2]
         x0 = int(round(float(g[0, 2]) - lo_x))
         y0 = int(round(float(g[1, 2]) - lo_y))
@@ -178,13 +184,17 @@ def judge(answers: List[dict], pool, limits: dict,
     """The numbers compared, each with its limit, over `answers`.
 
     Each answer is {"scene": pool index, "placed": [H of each image into
-    image 0's frame] or None when the panorama came back empty,
-    "pano": the panorama (host numpy or a tensor) for the sampled ones,
-    else None}. The reference of each sampled scene is drawn once, in
-    `dtype`, on the device of the scene's images (the first CUDA device
-    for host-resident pools, where there is one)."""
+    image 0's frame, None for an image left out] or None when the
+    panorama came back empty, "pano": the panorama (host numpy or a
+    tensor) for the sampled ones, else None, and optionally "anchor":
+    the image the entry framed the panorama in, 0 when absent}. An entry
+    that frames it in another image's frame has its placements converted
+    into image 0's by its loop (``inv(g_0) @ g_i``; all None when image 0
+    was left out). The reference of each sampled scene is drawn once per
+    anchor, in `dtype`, on the device of the scene's images (the first
+    CUDA device for host-resident pools, where there is one)."""
     h_err, missing, canvas_px, pixel = 0.0, 0, 0, 0
-    refs: Dict[int, tuple] = {}
+    refs: Dict[tuple, tuple] = {}
     bad = 0
     for a in answers:
         scene = pool[a["scene"]]
@@ -199,12 +209,13 @@ def judge(answers: List[dict], pool, limits: dict,
         h_err = max(h_err, e)
         worst = e > limits["h_err_px"]
         if a.get("pano") is not None:
-            if a["scene"] not in refs:
+            key = (a["scene"], a.get("anchor", 0))
+            if key not in refs:
                 imgs = [_device_image(img) for img in scene.images]
-                ref = panorama(imgs, truth, dtype)
-                refs[a["scene"]] = (ref, edge_band(ref.shape[:2], imgs,
-                                                   truth))
-            ref, band = refs[a["scene"]]
+                ref = panorama(imgs, truth, dtype, key[1])
+                refs[key] = (ref, edge_band(ref.shape[:2], imgs, truth,
+                                            key[1]))
+            ref, band = refs[key]
             got = compare_panorama(a["pano"], ref, band)
             canvas_px = max(canvas_px, got["canvas_px"])
             pixel = max(pixel, got["pixel_max_d"])

@@ -4,8 +4,10 @@ the shapes of the work, for ``kernels_roofline``.
 Copied from the port's ``chip_smoke.py`` (its ``bound`` and its
 per-pixel operation counts, counted there from each kernel's
 arithmetic) and rewritten as the work a step needs, not what today's
-kernel does: each image is detected and described once, each adjacent
-pair matched once, each source read once and the canvas written once.
+kernel does: each image is detected and described once, each pair the
+entry estimates matched once (``pairs``: "adjacent", the n - 1 pairs of
+a chain or a pair, or "all", the n(n - 1)/2 that an unordered set must
+match), each source read once and the canvas written once.
 A kernel that later replaces another for the same step reads against
 the same count.
 
@@ -39,6 +41,17 @@ ALPHA_OPS_PER_PX = 52
 EIGVEC_OPS = 8 * 36 * 179
 
 
+PAIRS = {"adjacent": lambda n: n - 1, "all": lambda n: n * (n - 1) // 2}
+
+
+def estimates(n_images: int, pairs: str = "adjacent") -> int:
+    """The estimates a panorama of `n_images` needs: `pairs` is a
+    traffic's "pairs" key."""
+    if pairs not in PAIRS:
+        raise ValueError(f"pairs must be one of {sorted(PAIRS)}: {pairs!r}")
+    return PAIRS[pairs](n_images)
+
+
 def least_seconds(nbytes: float, ops: Dict[str, float]) -> float:
     """The larger of the bytes over the memory rate and, of each type's
     operations over its peak, the largest (they run on other units)."""
@@ -48,11 +61,14 @@ def least_seconds(nbytes: float, ops: Dict[str, float]) -> float:
 
 def panorama_steps(images: Sequence[Tuple[int, int]],
                    canvas: Tuple[int, int], keypoints: int, patch: int,
-                   alpha: bool) -> Dict[str, float]:
+                   alpha: bool, pairs: str = "adjacent"
+                   ) -> Dict[str, float]:
     """Seconds of each step for one panorama of `images` ((h, w) each,
-    image 0 the anchor, each next one estimated against the one before)
+    the first standing for the anchor, which is placed and not warped)
     on a `canvas` (h, w), with `keypoints` per image and `patch`-sized
-    descriptors; `alpha` when the blend warps with the ramp alpha."""
+    descriptors; `alpha` when the blend warps with the ramp alpha;
+    `pairs` which pairs are estimated (``estimates``): each next image
+    against the one before, or every pair."""
     d = patch * patch * 3
     steps = {"detect": 0.0, "describe": 0.0, "match": 0.0,
              "warp_compose": 0.0, "eigvec": 0.0}
@@ -64,12 +80,12 @@ def panorama_steps(images: Sequence[Tuple[int, int]],
         # border flags out
         steps["describe"] += least_seconds(
             keypoints * (d + 8 + 1 + d * 4 + 1), {})
-    pairs = len(images) - 1
+    n_pairs = estimates(len(images), pairs)
     kk = keypoints * keypoints
-    steps["match"] = pairs * least_seconds(
+    steps["match"] = n_pairs * least_seconds(
         2 * keypoints * (d * 4 + 1) + keypoints * 12,
         {"int8": 2.0 * kk * d, "f32": MATCH_EPILOGUE_OPS * kk})
-    steps["eigvec"] = pairs * least_seconds(81 * 4 + 9 * 4,
+    steps["eigvec"] = n_pairs * least_seconds(81 * 4 + 9 * 4,
                                             {"f64": EIGVEC_OPS})
     warped_px = sum(h * w for h, w in images[1:])
     per_px = WARP_OPS_PER_PX + (ALPHA_OPS_PER_PX if alpha else 0)

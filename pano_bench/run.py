@@ -21,6 +21,13 @@ spans of ``spans.json`` installed. It reports the cell's per-layer
 metrics, read by ``metrics/<name>.py`` from the trace, and the
 breakdown.
 
+The traffic file names the loop ("driver": a loop of ``drivers.py``,
+or a file ``loops/<driver>.py``) and may say which pairs a panorama
+estimates ("pairs": "adjacent", the default, n - 1 a panorama of n
+images; "all", n(n - 1)/2, as an unordered set is matched), which sets
+the estimates that the per-layer metrics count and the roofline's match
+and eigenvector work.
+
 Either way, once the loop has ended, the peak memory has been read and
 the program's state is freed, the answers are held against the plain
 reference (``reference.py``): every panorama's placement, and the
@@ -33,7 +40,9 @@ with its limit, as the last lines of standard error and under
 output.
 
 Without a CUDA device, or with fewer than the cell asks for, it prints
-why on standard error and exits 2, with no result.
+why on standard error and exits 2, with no result. If the process holds
+JAX or the JAX package once the window has closed (``jax_modules``), it
+names them on standard error and exits 3, with no result.
 """
 
 from __future__ import annotations
@@ -128,7 +137,8 @@ def card_limit() -> str:
         return "not read"
 
 
-def window_work(answers: List[dict], cfg: dict, pool, alpha: bool) -> dict:
+def window_work(answers: List[dict], cfg: dict, pool, alpha: bool,
+                pairs: str = "adjacent") -> dict:
     """The roofline steps' least seconds summed over the answers."""
     work: dict = {}
     h, w = cfg["image_h"], cfg["image_w"]
@@ -140,7 +150,7 @@ def window_work(answers: List[dict], cfg: dict, pool, alpha: bool) -> dict:
         xs, ys = [x for x, _ in offs], [y for _, y in offs]
         canvas = (h + max(ys) - min(ys), w + max(xs) - min(xs))
         steps = roofline.panorama_steps([(h, w)] * len(offs), canvas, k, p,
-                                        alpha)
+                                        alpha, pairs)
         for s, v in steps.items():
             work[s] = work.get(s, 0.0) + v
     return work
@@ -161,15 +171,17 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     pool = scenes.make_pool(traffic["scenes"], cfg["image_h"],
                             cfg["image_w"], seed, devices[0],
                             traffic["resident"])
+    pairs = traffic.get("pairs", "adjacent")
+    make, found = drivers.loop_of(traffic["driver"], spec)
     run = drivers.Run(pano_config(cfg["pano_config"]), traffic, pool,
                       devices)
     cuda = devices[0].type == "cuda"
     sample = make_sample(seed, pool, cfg, int(traffic["sample_cycles"]),
                          cuda)
     n_pool = len(pool)
-    with drivers.captures(traffic["driver"], run), \
+    with drivers.captures(traffic["driver"], run, found), \
             contextlib.redirect_stdout(drivers.Silent()):
-        loop = drivers.DRIVERS[traffic["driver"]](run)
+        loop = make(run)
         loop(drivers.count(n_pool), drivers.NO_SAMPLE)
         run.sync()
         setup_s = time.perf_counter() - t_start
@@ -183,7 +195,7 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
         else:
             traced_answers, t = traced(spec, run, loop,
                                        int(traffic["trace_panoramas"]),
-                                       devices)
+                                       devices, getattr(found, "SPANS", []))
             peak = _peak_bytes(devices)
             # The pixel sample comes from the panoramas that the same
             # loop makes next, so that its copies stay out of the trace.
@@ -219,10 +231,11 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     else:
         work = window_work(traced_answers, cfg, pool,
                            cfg["pano_config"].get("stitch", {}).get(
-                               "blend", "overlay") != "overlay")
+                               "blend", "overlay") != "overlay", pairs)
         n_img = len(pool[0].offsets)
         n = len(traced_answers)
-        t.counts = {"panoramas": n, "estimates": n * (n_img - 1),
+        t.counts = {"panoramas": n,
+                    "estimates": n * roofline.estimates(n_img, pairs),
                     "images": n * n_img}
         t.work = work
         metrics = {}
@@ -241,16 +254,18 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     return out
 
 
-def traced(spec: Spec, run, loop, n: int, devices):
+def traced(spec: Spec, run, loop, n: int, devices, spans=()):
     """`n` panoramas through `loop` under torch.profiler with the layer
-    spans installed, none of them kept; returns (answers, Trace)."""
+    spans of ``spans.json`` and `spans` (a loop file's) installed, none
+    of them kept; returns (answers, Trace)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     run.span = lambda layer: record_function(tracing.PREFIX + layer)
     acts = [ProfilerActivity.CPU]
     if any(d.type == "cuda" for d in devices):
         acts.append(ProfilerActivity.CUDA)
-    with tracing.wrapped(tracing.layer_spans(spec.data("spans.json"))):
+    with tracing.wrapped(tracing.layer_spans(spec.data("spans.json")
+                                             + list(spans))):
         run.sync()
         with profile(activities=acts) as prof:
             with record_function(tracing.WINDOW):
@@ -265,6 +280,19 @@ def traced(spec: Spec, run, loop, n: int, devices):
     cards = sorted({d.index or 0 for d in devices if d.type == "cuda"})
     t = tracing.Trace(raw, {}, {}, spec.data("kernel_steps.json"), cards)
     return answers, t
+
+
+# Top-level modules that the port's run may not load: JAX and the JAX
+# package this repository ports (a whole top-level name: the port's
+# package is "pano_tpu_torch").
+JAX_MODULES = frozenset(("jax", "jaxlib", "flax", "pano_tpu"))
+
+
+def jax_modules(modules=None) -> List[str]:
+    """The top-level names of `modules` (sys.modules' names by default)
+    that are JAX or the JAX package."""
+    names = sys.modules if modules is None else modules
+    return sorted({m.split(".", 1)[0] for m in names} & JAX_MODULES)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -285,6 +313,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     devices = [torch.device("cuda", i) for i in range(int(cell["chips"]))]
     out = run_cell(spec, cell, args.seed, args.seconds, bool(args.trace),
                    devices, t_start)
+    loaded = jax_modules()
+    if loaded:
+        print(f"pano_bench: the run loaded {', '.join(loaded)}; no result",
+              file=sys.stderr)
+        return 3
     for name, v in out["compared"].items():
         print(f"{name} {v['value']} limit {v['limit']}", file=sys.stderr)
     print(json.dumps(out), flush=True)

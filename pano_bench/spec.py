@@ -1,5 +1,5 @@
-"""Finding a cell's parts by name: ``BENCHMARK.json`` and the data files
-and metric readers under this folder.
+"""Finding a cell's parts by name: ``BENCHMARK.json`` and the data files,
+metric readers and loops under this folder.
 
 A later change adds a cell, a traffic mix, a configuration or a metric
 by adding files here and entries to ``BENCHMARK.json``; nothing in this
@@ -11,6 +11,7 @@ from __future__ import annotations
 import importlib.util
 import json
 import pathlib
+from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 HERE = pathlib.Path(__file__).resolve().parent
@@ -28,6 +29,7 @@ class Spec:
         with open(path) as f:
             self.bench = json.load(f)
         self._readers: Dict[str, Callable] = {}
+        self._loops: Dict[str, ModuleType] = {}
 
     def _load_json(self, path: pathlib.Path) -> dict:
         with open(path) as f:
@@ -66,12 +68,26 @@ class Spec:
     def reader(self, metric: str) -> Callable:
         """``read(trace)`` of ``metrics/<metric>.py``."""
         if metric not in self._readers:
-            path = self.dir / "metrics" / f"{metric}.py"
-            mod_spec = importlib.util.spec_from_file_location(
-                f"pano_bench_metric_{len(self._readers)}", path)
-            if mod_spec is None or mod_spec.loader is None:
-                raise FileNotFoundError(path)
-            mod = importlib.util.module_from_spec(mod_spec)
-            mod_spec.loader.exec_module(mod)
-            self._readers[metric] = mod.read
+            self._readers[metric] = _load(
+                self.dir / "metrics" / f"{metric}.py",
+                f"pano_bench_metric_{len(self._readers)}").read
         return self._readers[metric]
+
+    def loop(self, name: str) -> ModuleType:
+        """The module of ``loops/<name>.py``: a loop that a traffic file
+        names as its "driver" and ``drivers.DRIVERS`` does not hold
+        (``drivers.loop_of``)."""
+        if name not in self._loops:
+            self._loops[name] = _load(self.dir / "loops" / f"{name}.py",
+                                      f"pano_bench_loop_{len(self._loops)}")
+        return self._loops[name]
+
+
+def _load(path: pathlib.Path, module_name: str) -> ModuleType:
+    """The Python file at `path`, run as a module of its own."""
+    mod_spec = importlib.util.spec_from_file_location(module_name, path)
+    if mod_spec is None or mod_spec.loader is None:
+        raise FileNotFoundError(path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    return mod

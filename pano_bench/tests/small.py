@@ -1,33 +1,13 @@
 """Cells shrunk for the CPU: small images, fewer keypoints and
 hypotheses, two scenes (eight for the batched cell); every kernel runs
-its plain PyTorch version."""
+its plain PyTorch version. Each cell takes its shrunk config and
+traffic from ``shrunk/<cell>.json``, so that a cell is added by files
+alone."""
+
+import json
+import pathlib
 
 import torch
-
-PAIR_SCENES = [[[0, 0], [83, 5]], [[0, 0], [97, 11]]]
-CHAIN_SCENES = [[[0, 0], [83, 5], [171, 9], [251, 3]],
-                [[0, 0], [79, 3], [165, 12], [249, 7]]]
-PIPELINE = {"harris": {"max_keypoints": 1024},
-            "ransac": {"num_iterations": 200}}
-
-OVERRIDES = {
-    "pair4k.device_serial": {
-        "config": {"image_h": 256, "image_w": 320, "pano_config": PIPELINE},
-        "traffic": {"scenes": PAIR_SCENES, "sample_cycles": 1,
-                    "trace_panoramas": 2}},
-    "pair4k.host_inflight3": {
-        "config": {"image_h": 256, "image_w": 320, "pano_config": PIPELINE},
-        "traffic": {"scenes": PAIR_SCENES, "sample_cycles": 1,
-                    "trace_panoramas": 2}},
-    "oilseed_chain.host_serial": {
-        "config": {"image_h": 200, "image_w": 240, "pano_config": PIPELINE},
-        "traffic": {"scenes": CHAIN_SCENES, "sample_cycles": 1,
-                    "trace_panoramas": 2}},
-    "pair4k.batch4_mesh4": {
-        "config": {"image_h": 256, "image_w": 320, "pano_config": PIPELINE},
-        "traffic": {"scenes": [[[0, 0], [83, 5]]] * 8, "sample_cycles": 1,
-                    "trace_panoramas": 8}},
-}
 
 SEED = 2 ** 31 + 977   # more than 32 signed bits hold
 
@@ -35,11 +15,19 @@ SEED = 2 ** 31 + 977   # more than 32 signed bits hold
 # BENCHMARK.json leaves out (their runs spread too widely on a shared
 # host for the largest bound; PERF.md section 7).
 READY = [
-    {"name": "pair4k.host_inflight3", "config": "mountain_pair_4k",
-     "traffic": "host_inflight3", "chips": 1},
     {"name": "pair4k.batch4_mesh4", "config": "mountain_pair_4k",
      "traffic": "batch4_mesh4", "chips": 4},
 ]
+
+
+def overrides(name: str, bench_dir=None) -> dict:
+    """{"config": ..., "traffic": ...} that shrink cell `name`:
+    ``tests/shrunk/<name>.json`` under `bench_dir` (this folder's
+    benchmark by default)."""
+    here = pathlib.Path(bench_dir) / "tests" if bench_dir is not None \
+        else pathlib.Path(__file__).resolve().parent
+    with open(here / "shrunk" / f"{name}.json") as f:
+        return json.load(f)
 
 
 def cpu_devices(cell: dict):

@@ -236,3 +236,35 @@ def test_device_readers_read_nothing_without_a_device(name):
     host_only = [e for e in canned()
                  if e["cat"] not in tracing.DEVICE_CATS]
     assert Spec().reader(name)(make(host_only)) is None
+
+
+# A four-image chain's steps as the harness counted them before a
+# traffic could say which pairs a panorama estimates.
+CHAIN_STEPS = {"detect": 1.7961229850746268e-05,
+               "describe": 3.7658746268656718e-06,
+               "match": 3.9063368597014925e-05,
+               "warp_compose": 1.870683671641791e-05,
+               "eigvec": 4.548705882352941e-09}
+
+
+def test_roofline_pairs_adjacent_by_default_and_all_pairs():
+    args = ([(1502, 2003)] * 4, (1543, 5739), 8192, 5, True)
+    assert roofline.panorama_steps(*args) == CHAIN_STEPS
+    assert roofline.panorama_steps(*args, "adjacent") == CHAIN_STEPS
+    every = roofline.panorama_steps(*args, "all")
+    for step in ("detect", "describe", "warp_compose"):
+        assert every[step] == CHAIN_STEPS[step]
+    for step in ("match", "eigvec"):
+        assert every[step] == pytest.approx(CHAIN_STEPS[step] * 6 / 3)
+
+
+@pytest.mark.parametrize("n,pairs,want", [
+    (2, "adjacent", 1), (4, "adjacent", 3), (2, "all", 1), (4, "all", 6),
+    (12, "all", 66)])
+def test_estimates_a_panorama(n, pairs, want):
+    assert roofline.estimates(n, pairs) == want
+
+
+def test_unknown_pairs_is_refused():
+    with pytest.raises(ValueError):
+        roofline.estimates(4, "tree")

@@ -17,7 +17,7 @@ import torch
 from pano_bench.control import control_run
 from pano_bench.run import run_cell
 from pano_bench.spec import HERE, Spec
-from pano_bench.tests.small import OVERRIDES, READY, SEED, cpu_devices
+from pano_bench.tests.small import READY, SEED, cpu_devices, overrides
 
 SPEC = Spec()
 CELLS = [w["name"] for w in SPEC.bench["workloads"]] + [c["name"]
@@ -33,7 +33,7 @@ def cell_of(name):
 def run(name, trace=False, seconds=0.5):
     cell = cell_of(name)
     return run_cell(SPEC, cell, SEED, seconds, trace, cpu_devices(cell),
-                    time.perf_counter(), OVERRIDES[name])
+                    time.perf_counter(), overrides(name))
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
@@ -61,7 +61,7 @@ def test_cell_runs_and_is_correct(name, trace):
 @pytest.mark.parametrize("name", CELLS)
 def test_control_is_not_correct(name):
     got = control_run(SPEC, cell_of(name), SEED, torch.device("cpu"),
-                      OVERRIDES[name])
+                      overrides(name))
     assert not got["correct"], got
 
 

@@ -108,3 +108,59 @@ def test_bfloat16_reference_is_not_correct():
     judged = reference.judge(control_answers(pool), pool, limits)
     assert not reference.within(judged["compared"])
     assert judged["compared"]["h_err_px"]["value"] >= 1.0
+
+
+def _blocks():
+    """Two flat images that differ (10 and 200), the second 30 px to the
+    right and 4 down: where they overlap, the one drawn last shows."""
+    a = torch.full((40, 50, 3), 10, dtype=torch.uint8)
+    b = torch.full((40, 50, 3), 200, dtype=torch.uint8)
+    return [a, b], [scenes.translation(0, 0), scenes.translation(30, 4)]
+
+
+def test_reference_draws_the_anchor_first():
+    imgs, hs = _blocks()
+    first = reference.panorama(imgs, hs)
+    assert torch.equal(first, reference.panorama(imgs, hs, torch.float32,
+                                                 0))
+    assert first.shape == (44, 80, 3)
+    assert int(first[10, 40, 0]) == 200 and int(first[2, 10, 0]) == 10
+    second = reference.panorama(imgs, hs, torch.float32, 1)
+    assert int(second[10, 40, 0]) == 10      # image 0 drawn over image 1
+    assert int(second[30, 70, 0]) == 200
+
+
+def test_edge_band_leaves_out_the_anchor():
+    imgs, hs = _blocks()
+    band0 = reference.edge_band((44, 80), imgs, hs)
+    assert torch.equal(band0, reference.edge_band((44, 80), imgs, hs, 0))
+    want = torch.zeros((44, 80), dtype=torch.bool)   # image 1's edges
+    want[3:5, 29:80] = want[43:45, 29:80] = True
+    want[3:44, 29:31] = want[3:44, 79:81] = True
+    assert torch.equal(band0, want)
+    band1 = reference.edge_band((44, 80), imgs, hs, 1)
+    want = torch.zeros((44, 80), dtype=torch.bool)   # image 0's edges
+    want[0:1, 0:51] = want[39:41, 0:51] = True
+    want[0:41, 0:1] = want[0:41, 49:51] = True
+    assert torch.equal(band1, want)
+
+
+def test_judge_without_an_anchor_is_anchor_0():
+    offs = [(0, 0), (30, 4), (64, 9)]
+    gen = scenes.generator(13, "cpu")
+    pool = [scenes.Scene(scenes.scene_images(offs, 40, 50, gen, "cpu"),
+                         tuple(offs))]
+    truth = scenes.planted_globals(pool[0])
+    ref = reference.panorama(pool[0].images, truth)
+    off = [truth[0], truth[1], scenes.translation(64.4, 9)]
+    limits = {"h_err_px": 0.25, "canvas_px": 5, "pixel_max_d": 20}
+    answers = [{"scene": 0, "placed": truth, "pano": ref},
+               {"scene": 0, "placed": off, "pano": ref.flip(1)},
+               {"scene": 0, "placed": None, "pano": None}]
+    plain = reference.judge(answers, pool, limits)
+    zero = reference.judge([dict(a, anchor=0) for a in answers], pool,
+                           limits)
+    assert plain == zero
+    assert plain["failed"] == 2
+    assert plain["compared"]["h_err_px"]["value"] == pytest.approx(0.4)
+    assert plain["compared"]["missing"]["value"] == 1

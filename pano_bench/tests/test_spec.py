@@ -13,7 +13,8 @@ import torch
 from pano_bench import drivers
 from pano_bench.run import run_cell
 from pano_bench.spec import HERE, Spec
-from pano_bench.tests.small import OVERRIDES, SEED
+from pano_bench.tests.added import add_auto_cell, place_anchor, snapshot
+from pano_bench.tests.small import SEED, overrides
 
 SPEC = Spec()
 BENCH = SPEC.bench
@@ -57,7 +58,7 @@ def test_cell_and_traffic_found_by_name(cell):
     assert cell["chips"] in (1, 4)
     assert 1 <= len(cell["why"]) <= 200 and "\n" not in cell["why"]
     traffic = SPEC.traffic(cell["traffic"])
-    assert traffic["driver"] in drivers.DRIVERS
+    assert callable(drivers.loop_of(traffic["driver"], SPEC)[0])
     n_img = SPEC.config(cell["config"])["images_per_panorama"]
     assert all(len(s) == n_img for s in traffic["scenes"])
     assert traffic["trace_panoramas"] >= \
@@ -73,10 +74,22 @@ def test_every_traffic_file_and_metric_reader_loads():
     BENCHMARK.json names."""
     for path in sorted((HERE / "traffic").glob("*.json")):
         traffic = SPEC.traffic(path.stem)
-        assert traffic["driver"] in drivers.DRIVERS, path
+        assert callable(drivers.loop_of(traffic["driver"], SPEC)[0]), path
         assert traffic["resident"] in ("device", "host"), path
     for path in sorted((HERE / "metrics").glob("*.py")):
         assert callable(SPEC.reader(path.stem)), path
+
+
+def test_every_loop_file_loads_and_makes_a_loop():
+    paths = sorted((HERE / "loops").glob("*.py"))
+    assert paths
+    for path in paths:
+        assert path.stem not in drivers.DRIVERS, path
+        make, found = drivers.loop_of(path.stem, SPEC)
+        assert callable(make) and found is SPEC.loop(path.stem), path
+        assert not hasattr(found, "capture") or callable(found.capture)
+        for entry in getattr(found, "SPANS", []):
+            assert set(entry) == {"target", "layer"}, path
 
 
 def test_cells_are_distinct_and_four_chips_are_few():
@@ -110,15 +123,20 @@ def test_setup_s_is_an_end_to_end_metric():
     assert names["setup_s"]["bound"] <= 0.25
 
 
-def test_a_cell_and_a_metric_added_by_files_alone(tmp_path):
+def test_a_cell_and_a_metric_added_by_files_alone(tmp_path, monkeypatch):
     """A copy of this folder with one more traffic file, one more metric
     reader and the BENCHMARK.json entries for them: the new cell runs
-    and reports the new metric, and no file that was there changed."""
+    and reports the new metric. Then a cell with a loop of its own
+    (``loops/auto_serial.py``), added as the next configuration would
+    be: a configuration, limits, a traffic file with "pairs": "all", its
+    CPU sizes under ``tests/shrunk/``, a reader of a range of the
+    program, and the entries: it runs correct (its anchor placed at the
+    nearest pixel: ``test_auto_serial``'s docstring) and reports the
+    reader. No file that was there changed."""
     bench_dir = tmp_path / "pano_bench"
     shutil.copytree(HERE, bench_dir,
                     ignore=shutil.ignore_patterns("__pycache__"))
-    before = {p.relative_to(bench_dir): p.read_bytes()
-              for p in bench_dir.rglob("*") if p.is_file()}
+    before = snapshot(bench_dir)
     traffic = json.loads((bench_dir / "traffic" /
                           "device_serial.json").read_text())
     traffic["scenes"] = traffic["scenes"][:2]
@@ -139,7 +157,7 @@ def test_a_cell_and_a_metric_added_by_files_alone(tmp_path):
 
     spec = Spec(bench_dir)
     cell = spec.workload("pair4k.device_serial_two")
-    over = OVERRIDES["pair4k.device_serial"]
+    over = overrides("pair4k.device_serial")
     over = {"config": over["config"],
             "traffic": {k: v for k, v in over["traffic"].items()
                         if k != "scenes"}}
@@ -148,7 +166,31 @@ def test_a_cell_and_a_metric_added_by_files_alone(tmp_path):
                    time.perf_counter(), over)
     assert out["correct"]
     assert out["metrics"]["detect.spans"]["value"] == 4   # 2 pairs x 2
-    after = {p.relative_to(bench_dir): p.read_bytes()
-             for p in bench_dir.rglob("*") if p.is_file()
-             and "__pycache__" not in p.parts}
+
+    name = add_auto_cell(bench_dir, "row3")
+    (bench_dir / "metrics" / "detect.calls.py").write_text(
+        "def read(t):\n    n = t.program_count('detect')\n"
+        "    return n / t.counts['images'] if n else None\n")
+    bench = json.loads((tmp_path / "BENCHMARK.json").read_text())
+    bench["per_layer"].append({
+        "name": "detect.calls", "unit": "calls", "better": "lower",
+        "source": "program_counter", "layer": "detect",
+        "moves": "panoramas_per_s", "workloads": [name]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    spec = Spec(bench_dir)
+    place_anchor(monkeypatch)
+    out = run_cell(spec, spec.workload(name), SEED, 0.3, True,
+                   [torch.device("cpu")], time.perf_counter(),
+                   overrides(name, bench_dir))
+    assert out["correct"], out["compared"]
+    assert out["metrics"]["detect.calls"]["value"] == 1   # once an image
+    after = snapshot(bench_dir)
     assert all(after[k] == v for k, v in before.items())
+
+
+def test_jax_modules_by_whole_top_level_name():
+    from pano_bench.run import jax_modules
+    assert jax_modules(["pano_tpu_torch", "pano_tpu_torch.ops.ransac",
+                        "torch", "jaxtyping", "pano_bench"]) == []
+    assert jax_modules(["jax.numpy", "jaxlib", "flax.linen", "pano_tpu.ops",
+                        "torch"]) == ["flax", "jax", "jaxlib", "pano_tpu"]

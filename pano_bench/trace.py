@@ -13,6 +13,15 @@ thread, holds its launch: the runtime's launch event (a kernel's, or a
 CUDA graph's for each kernel of the graph) and the kernel share a
 correlation id.
 
+The program's own ranges (``pano.<name>``, opened by the port's
+``timer.span``) are kept apart from the layer spans, as ``program``
+(name, start, end, thread), so that nothing that reads the layer spans
+changes with them. A reader takes from them a count (``program_count``:
+the outermost ranges of a name), a host time (``program_span_us``) and
+the device time of the kernels launched inside them
+(``program_kernel_us``), the arithmetic of the port's
+``tools/torch_trace_summary.program_steps``.
+
 The device's busy time is the union of its kernel, memcpy and memset
 intervals over all its streams (copied from the port's
 ``tools/torch_trace_summary.py``), clipped to the traced window.
@@ -28,6 +37,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 PREFIX = "pano_bench."
 WINDOW = PREFIX + "window"
+PROGRAM_PREFIX = "pano."
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 # A graph's launch is one launch: its kernels carry its correlation id,
 # so they belong to the spans that hold it.
@@ -180,8 +190,9 @@ class Trace:
         events = trace.get("traceEvents", trace) \
             if isinstance(trace, dict) else trace
         self.spans: List[tuple] = []     # (layer, start, end, tid)
+        self.program: List[tuple] = []   # (name, start, end, tid)
         self.window: Optional[Tuple[float, float]] = None
-        launches: List[tuple] = []       # (ts, correlation, tid)
+        self.launches: List[tuple] = []  # (ts, correlation, tid)
         self.device: List[dict] = []
         self.cpu_ops: List[tuple] = []   # (start, end, name, tid)
         for e in events:
@@ -195,9 +206,13 @@ class Trace:
                 else:
                     self.spans.append((name[len(PREFIX):], ts, ts + dur,
                                        e.get("tid")))
+            elif cat == "user_annotation" \
+                    and name.startswith(PROGRAM_PREFIX):
+                self.program.append((name[len(PROGRAM_PREFIX):], ts,
+                                     ts + dur, e.get("tid")))
             elif cat in ("cuda_runtime", "cuda_driver") \
                     and name in LAUNCH_NAMES:
-                launches.append((ts, (e.get("args") or {}).get(
+                self.launches.append((ts, (e.get("args") or {}).get(
                     "correlation"), e.get("tid")))
             elif cat in DEVICE_CATS:
                 args = e.get("args") or {}
@@ -213,19 +228,26 @@ class Trace:
             raise ValueError("trace has no " + WINDOW + " span")
         lo, hi = self.window
         self.spans = [s for s in self.spans if s[2] > lo and s[1] < hi]
+        self.program = [s for s in self.program if s[2] > lo and s[1] < hi]
         self.device = [d for d in self.device
                        if d["end"] > lo and d["start"] < hi]
-        self.launch_layers = self._attribute(launches)
+        self.launch_layers = self._attribute(self.launches, self.spans)
         by_corr = {c: layers for (ts, c, tid), layers
-                   in zip(launches, self.launch_layers) if c is not None}
+                   in zip(self.launches, self.launch_layers) if c is not None}
+        in_program = {c: names for (ts, c, tid), names
+                      in zip(self.launches,
+                             self._attribute(self.launches, self.program))
+                      if c is not None}
         for d in self.device:
             d["layers"] = by_corr.get(d["corr"], frozenset())
+            d["program"] = in_program.get(d["corr"], frozenset())
 
-    def _attribute(self, launches) -> List[frozenset]:
-        """The layers whose spans, on the launch's thread, hold each
-        launch."""
+    @staticmethod
+    def _attribute(launches, spans) -> List[frozenset]:
+        """The names of the `spans` ((name, start, end, tid)) that, on
+        the launch's thread, hold each launch."""
         sweep: Dict[object, list] = defaultdict(list)
-        for layer, s, e, tid in self.spans:
+        for layer, s, e, tid in spans:
             sweep[tid] += [(s, 0, layer), (e, 2, layer)]
         for i, (ts, _, tid) in enumerate(launches):
             sweep[tid].append((ts, 1, i))
@@ -282,6 +304,42 @@ class Trace:
 
     def launches_in(self, layer: str) -> int:
         return sum(1 for layers in self.launch_layers if layer in layers)
+
+    def program_spans(self, name: str) -> List[Tuple[float, float, object]]:
+        """The program's ``pano.<name>`` ranges in the window, as (start,
+        end, tid)."""
+        return [(s, e, tid) for n, s, e, tid in self.program if n == name]
+
+    def program_outermost(self, name: str
+                          ) -> List[Tuple[float, float, object]]:
+        """`name`'s ranges not nested in another of that name on the
+        same thread."""
+        last: Dict[object, float] = {}
+        out = []
+        for s, e, tid in sorted(self.program_spans(name),
+                                key=lambda x: (x[0], -x[1])):
+            if tid in last and s < last[tid]:
+                continue
+            last[tid] = e
+            out.append((s, e, tid))
+        return out
+
+    def program_count(self, name: str) -> int:
+        """How many times the program entered step `name`: its outermost
+        ranges (a counter, such as the host's waits)."""
+        return len(self.program_outermost(name))
+
+    def program_span_us(self, name: str) -> float:
+        """Host time in `name`'s outermost ranges."""
+        return sum(e - s for s, e, _ in self.program_outermost(name))
+
+    def program_kernel_us(self, name: str) -> float:
+        """Device time of the kernels launched inside a ``pano.<name>``
+        range on the launching thread, clipped to the window."""
+        lo, hi = self.window
+        return sum(min(d["end"], hi) - max(d["start"], lo)
+                   for d in self.device
+                   if d["cat"] == "kernel" and name in d["program"])
 
     def kernel_us(self, layer: Optional[str] = None) -> float:
         """Device time of the kernels launched under `layer` (all
