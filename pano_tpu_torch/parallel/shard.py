@@ -575,25 +575,10 @@ def stitch_all_images_auto_sharded(
                     _feat_to(feats[j], dev), _feat_to(feats[i], dev),
                     config).to(home)
     packed = pipeline._host_fetch(torch.stack(rows))   # the one fetch
-
-    counts = np.zeros((n, n), np.int64)
-    h_edge: dict = {}
-    for k, (i, j) in enumerate(pairs):
-        if packed[k, 10] <= 0.5:
-            continue
-        counts[i, j] = counts[j, i] = int(packed[k, 9])
-        h_edge[(i, j)] = packed[k, :9].astype(np.float64).reshape(3, 3)
-    if counts.sum() == 0:
-        print("No connected image pairs!", file=sys.stderr)
+    graph = pipeline.auto_globals(packed, pairs, images, config, anchor)
+    if graph is None:
         return None
-
-    globals_h, root = pipeline.max_spanning_tree_globals(counts, h_edge, n,
-                                                         anchor)
-    n_placed = sum(1 for g in globals_h if g is not None)
-    print(f"Auto-ordering: root image {root + 1}, placed {n_placed} of {n}",
-          flush=True)
-    globals_h = pipeline.maybe_refine_globals(globals_h, counts, h_edge, root,
-                                              images, config)
+    globals_h, root = graph
     result = composite_global_sharded(images, devs, globals_h, config,
                                       mesh=mesh, anchor=root)
     if print_timing:

@@ -740,34 +740,53 @@ def stitch_all_images_auto(
     devs = [_to_device(img, dev) for img in images]
     feats = [auto_detect(d, config.harris) for d in devs]
     pairs = [(i, j) for i in range(n) for j in range(i + 1, n)]
-    pending = [auto_pair_row(feats[j], feats[i], config, sampler)
-               for i, j in pairs]
-
-    counts = np.zeros((n, n), np.int64)
-    h_edge: dict = {}
-    if pending:
-        packed = _host_fetch(torch.stack(pending))
-        for k, (i, j) in enumerate(pairs):
-            if packed[k, 10] <= 0.5:
-                continue
-            counts[i, j] = counts[j, i] = int(packed[k, 9])
-            h_edge[(i, j)] = packed[k, :9].astype(np.float64).reshape(3, 3)
-
-    if counts.sum() == 0:
-        print("No connected image pairs!", file=sys.stderr)
+    pending = []
+    for i, j in pairs:
+        with span("estimate"):
+            pending.append(auto_pair_row(feats[j], feats[i], config, sampler))
+    packed = _host_fetch(torch.stack(pending)) if pending else None
+    graph = auto_globals(packed, pairs, images, config, anchor)
+    if graph is None:
         return None
-
-    globals_h, root = max_spanning_tree_globals(counts, h_edge, n, anchor)
-    n_placed = sum(1 for g in globals_h if g is not None)
-    print(f"Auto-ordering: root image {root + 1}, placed {n_placed} of {n}",
-          flush=True)
-    globals_h = maybe_refine_globals(globals_h, counts, h_edge, root, images,
-                                     config)
+    globals_h, root = graph
     result = composite_global(images, devs, globals_h, config, anchor=root)
     if print_timing:
         print_stage(_suffix("Total Stitching Process", timing_tag),
                     t.elapsed())
     return result
+
+
+def auto_globals(
+    packed: Optional[np.ndarray],
+    pairs: List[Tuple[int, int]],
+    images: List,
+    config: PanoConfig,
+    anchor: str = "auto",
+) -> Optional[Tuple[List[Optional[np.ndarray]], int]]:
+    """Auto mode's host work on the fetched pair rows (`packed`, one
+    (11,) row per pair of `pairs`), in a ``graph`` span: the inlier-count
+    graph of the pairs that pass the gate, its maximum spanning tree and
+    the bundle gate. Returns (globals_h, root), or None where no pair
+    passes."""
+    n = len(images)
+    with span("graph"):
+        counts = np.zeros((n, n), np.int64)
+        h_edge: dict = {}
+        for k, (i, j) in enumerate(pairs):
+            if packed[k, 10] <= 0.5:
+                continue
+            counts[i, j] = counts[j, i] = int(packed[k, 9])
+            h_edge[(i, j)] = packed[k, :9].astype(np.float64).reshape(3, 3)
+        if counts.sum() == 0:
+            print("No connected image pairs!", file=sys.stderr)
+            return None
+
+        globals_h, root = max_spanning_tree_globals(counts, h_edge, n, anchor)
+        n_placed = sum(1 for g in globals_h if g is not None)
+        print(f"Auto-ordering: root image {root + 1}, placed {n_placed} of "
+              f"{n}", flush=True)
+        return maybe_refine_globals(globals_h, counts, h_edge, root, images,
+                                    config), root
 
 
 def maybe_refine_globals(
@@ -793,7 +812,8 @@ def maybe_refine_globals(
     ):
         return globals_h
     shapes = [tuple(int(s) for s in im.shape[:2]) for im in images]
-    refined, stats = bundle.refine_globals(globals_h, edges, root, shapes)
+    with span("bundle"):
+        refined, stats = bundle.refine_globals(globals_h, edges, root, shapes)
     print(
         "Bundle refinement: rms "
         f"{stats['rms_before']:.3f} -> {stats['rms_after']:.3f} px "
@@ -881,14 +901,14 @@ def composite_global(
 
     globals_h[i] maps image i into the anchor's frame (None: excluded;
     globals_h[anchor] is the identity). The anchor goes in first, at the
-    truncated translation (int(t_mat)), and the weight canvas starts as
-    its edge ramp. Then, per placed image: the exact window of its warped
-    corners, the mip level of the map (``ops/mip.py``), the windowed warp
-    with its weight (K4b, the ramp alpha for feather and multiband), and
-    the step: K6 for overlay and feather without gain, else
-    ``blend_window_outputs`` in chain mode on the window, its merged
-    weight written back. Every blend is placed against the accumulated
-    weight canvas (the JAX package's TPU route).
+    canvas pixel nearest its translation (t_mat rounded), and the weight
+    canvas starts as its edge ramp. Then, per placed image: the exact
+    window of its warped corners, the mip level of the map
+    (``ops/mip.py``), the windowed warp with its weight (K4b, the ramp
+    alpha for feather and multiband), and the step: K6 for overlay and
+    feather without gain, else ``blend_window_outputs`` in chain mode on
+    the window, its merged weight written back. Every blend is placed
+    against the accumulated weight canvas (the JAX package's TPU route).
 
     `_weights_out` (tests only): a list that receives the final weight
     canvas as host numpy."""
@@ -944,7 +964,10 @@ def blend_global(anchor_img, t_mat, canvas_h, canvas_w, warps, config,
     composite_global)."""
     st = config.stitch
     dev = anchor_img.device
-    ty0, tx0 = int(t_mat[1, 2]), int(t_mat[0, 2])
+    # The anchor at the canvas pixel nearest its exact place, where the
+    # others are warped to: truncating puts it a pixel off them when the
+    # extent falls a hair short of an integer.
+    ty0, tx0 = int(np.round(t_mat[1, 2])), int(np.round(t_mat[0, 2]))
     canvas = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
                          device=dev)
     warp_ops._place(canvas, anchor_img, ty0, tx0)

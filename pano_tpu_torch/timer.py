@@ -26,6 +26,10 @@ and device events, on the same clock. The names:
   ``compose`` (with ``compose.context``, the torch window work of
   multiband and gain),
   ``mesh`` (a batch over the data axis): the layers;
+* ``estimate``: one pair's match and RANSAC in auto mode, and ``graph``:
+  its host work on the fetched rows (the edge table, the spanning tree,
+  the bundle gate), with ``bundle``, the refinement where the gate
+  fires;
 * ``geometry``: the canvas maths on the host;
 * ``upload``: a blocking copy of a host image to the device (an image
   already there opens none);

@@ -266,7 +266,12 @@ def jax_tpu_route(imgs, gs, blend, gain, anchor=0):
     the weight canvas, fed with the port's windowed warp (K4b's plain
     version) packed to int32, and the merged weight written back."""
     t_mat, ch, cw = JP.global_canvas_geometry(imgs, gs, anchor, 128)[:3]
-    ty0, tx0 = int(t_mat[1, 2]), int(t_mat[0, 2])
+    # The anchor at the nearest pixel, as the port places it: the JAX
+    # package truncates, which puts an anchor that is not the canvas's
+    # top-left image a pixel off its neighbours when the extent falls a
+    # hair short of an integer (a recorded difference, ROADMAP E; JAX's
+    # side is the wrong one).
+    ty0, tx0 = int(np.round(t_mat[1, 2])), int(np.round(t_mat[0, 2]))
     s = lambda v: jnp.asarray(v, jnp.int32)  # noqa: E731
     canvas = lax.dynamic_update_slice(
         jnp.zeros((ch, cw, 3), jnp.uint8), jnp.asarray(imgs[anchor]),

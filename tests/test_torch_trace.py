@@ -1,10 +1,12 @@
 """The port's profiler spans (``timer.span``) on the CPU: which ``pano.``
-ranges a pair, a chain and an upload open under ``torch.profiler``, how
-the RANSAC steps nest, and that nothing enters ``record_function`` when
-no profiler records. The host waits, which only a card has, are tested
-on the card (tests/test_torch_cuda.py)."""
+ranges a pair, a chain, auto mode and an upload open under
+``torch.profiler``, how the RANSAC steps and auto mode's graph nest, and
+that nothing enters ``record_function`` when no profiler records. The
+host waits, which only a card has, are tested on the card
+(tests/test_torch_cuda.py)."""
 
 import collections
+import dataclasses
 import json
 
 import numpy as np
@@ -91,6 +93,42 @@ def test_chain_of_host_images_uploads_each_and_marks_each_context(
     assert counts["pano.ransac"] == n - 1
 
 
+@pytest.mark.parametrize("bundle_adjust,bundles", [("auto", 1), ("off", 0)])
+def test_auto_opens_an_estimate_span_a_pair_and_one_graph(
+        tmp_path, monkeypatch, bundle_adjust, bundles):
+    """Auto mode on a 2x2 grid (a cycle of four pairs and two diagonals):
+    n(n - 1)/2 = 6 ``pano.estimate`` ranges, each holding its pair's match
+    and RANSAC; one ``pano.graph`` after the rows' fetch; and
+    ``pano.bundle`` inside it only where the bundle gate fires."""
+    from pano_tpu_torch.ops import bundle
+    refined = []
+    real = bundle.refine_globals
+    monkeypatch.setattr(bundle, "refine_globals", lambda *a, **k: (
+        refined.append(None), real(*a, **k))[1])
+    base = _scene(seed=5, h=220, w=260)
+    images = [base[y:y + 160, x:x + 200].copy()
+              for x, y in ((0, 0), (60, 2), (3, 58), (62, 60))]
+    cfg = _config()
+    cfg = cfg.replace(stitch=dataclasses.replace(
+        cfg.stitch, bundle_adjust=bundle_adjust))
+    pano, spans = _spans(lambda: pipeline.stitch_all_images(
+        images, cfg, False, "", "cpu", mode="auto"), tmp_path)
+    assert pano is not None and len(refined) == bundles
+    counts = _count(spans)
+    assert counts["pano.estimate"] == 6 and counts["pano.ransac"] == 6
+    assert counts["pano.graph"] == 1
+    assert counts["pano.bundle"] == bundles
+    (_, gs, ge, gtid), = [x for x in spans if x[0] == "pano.graph"]
+    for name, s, e, tid in spans:
+        if name == "pano.bundle":
+            assert tid == gtid and gs <= s <= e <= ge
+        if name in ("pano.ransac", "pano.match"):
+            assert any(n == "pano.estimate" and t == tid and a <= s <= e <= b
+                       for n, a, b, t in spans), name
+    assert all(e <= gs for name, s, e, _ in spans
+               if name == "pano.estimate")
+
+
 @pytest.mark.parametrize("to", [
     lambda x: pipeline._to_device(x, "cpu"),
     lambda x: shard._to(x, torch.device("cpu")),
@@ -126,4 +164,7 @@ def test_no_profiler_no_record_function(monkeypatch):
     images = [base[:, 70 * i:70 * i + 160].copy() for i in range(2)]
     assert pipeline.stitch_all_images_chain(
         images, _config("multiband"), False, "", "cpu") is not None
+    images.append(base[:, 140:300].copy())
+    assert pipeline.stitch_all_images(
+        images, _config(), False, "", "cpu", mode="auto") is not None
 
