@@ -48,7 +48,12 @@ failure.
    refine's smallest eigenvector) runs on the planted pair's 9x9 normal
    matrix as the main path hands it over, also held to float64
    numpy.linalg.eigh (1 - |cos| <= 1e-5); its library call is
-   torch.linalg.eigh, timed with the host sync of its error check. Last,
+   torch.linalg.eigh, timed with the host sync of its error check. K8
+   and K9, multiband's pyramid (REDUCE and the collapse step), run at a
+   chain window's size (1504x2016) and its lower levels, each level
+   torch.equal to the plain version and the whole blend to ops/blend.py's
+   tap-per-launch route (its time `route_ms`, the kernels' `blend_ms`,
+   with the launches a window), timed at level 0. Last,
    RANSAC's default table (JAX's randint, made on the card from a device
    n_valid) against the CPU's, and the time of one draw (draw_ms).
 5. main path (overlay): PairStitcher(DEFAULT_CONFIG, device="cuda")
@@ -64,7 +69,8 @@ failure.
 7. multiband and feather+gain: one call each, launch counts, the overlap
    against the left image (+-1 with gain, +-2 with multiband: its f32
    pyramid round trip) and the call's wall time; multiband also on the
-   planted H itself.
+   planted H itself; multiband launches K8 x4 and K9 x5 (its one
+   window's pyramid), feather+gain neither.
 8. staged path: stitch_pair with print_timing=True and overlay, once: the
    four stage lines in the reference's format, and the panorama within
    +-1 of the fused one.
@@ -76,7 +82,8 @@ failure.
    (+-2; multiband +-3; the composed globals carry about three times a
    pair's sub-pixel error onto sharp edges) with the share above +-1,
    and the launches (K1 x6, K2 x6, K3 x3, K7 x3, K4b x3, K6 x3 for overlay and
-   feather and x0 for multiband and gain, K4a and K5 x0); the warm wall
+   feather and x0 for multiband and gain, K8 x12 and K9 x15 for multiband
+   (4 and 5 a window) and x0 for the others, K4a and K5 x0); the warm wall
    time of overlay (median of 3) and peak memory, one call each for the
    others. After overlay, the chain's parts (its estimates, its
    composite) and the chain call with each result dropped before the
@@ -174,8 +181,8 @@ failure.
 15. The last three lines are the nvidia-smi line, a JSON object with
 the per-kernel numbers (each kernel's launches from the path that runs
 it: K1-K4a and K7 from phase 5, K4b and K5 from phase 6, K6 from phase 9's
-overlay chain, the batched K1 and K4b from phase 13's chain on the
-card), and {"ok": true, ...}. The whole run takes about six minutes of
+overlay chain, K8 and K9 from phase 9's multiband chain, the batched K1
+and K4b from phase 13's chain on the card), and {"ok": true, ...}. The whole run takes about six minutes of
 command time on an H100, the build included.
 """
 
@@ -232,6 +239,15 @@ BATCHED = {
     "K4bb": ("warp_packed_batched", "pano_tpu_torch/csrc/warp.cu",
              "pano_tpu/ops/pallas_warp.py:870"),
 }
+# Multiband's pyramid, which replaces no TPU kernel (the JAX package leaves
+# it to XLA).
+PYRAMID = {
+    "K8": ("pyramid_reduce", "pano_tpu_torch/csrc/pyramid.cu",
+           "none (pano_tpu/ops/blend.py, XLA)"),
+    "K9": ("pyramid_collapse", "pano_tpu_torch/csrc/pyramid.cu",
+           "none (pano_tpu/ops/blend.py, XLA)"),
+}
+PYRAMID_WINDOW = (1504, 2016)  # a chain window of the oilseed images
 
 # H100 SXM peaks (NVIDIA data sheet, dense): the least time a kernel could
 # take is the larger of its bytes over the memory rate and its operations
@@ -264,6 +280,11 @@ CHAIN_OPS_PER_PX = 27
 #     sweep; the pad's 9 are skipped): its parameters 15, the columns of
 #     A and V (18 rows of 6) 108, the rows of A (9 of 6) 54, the diagonal 2.
 K7_OPS_PER_ROTATION = 179
+# K8 per output pixel and plane: 25 taps of a product and a sum. K9 per
+#     fine pixel: at most 9 hit taps of 9 planes (product and sum), the
+#     normaliser 3, 9 divisions, the mask's clamp 3, three bands of 7.
+K8_OPS_PER_PX = 50
+K9_OPS_PER_PX = 9 * 18 + 3 + 9 + 3 + 21
 
 # Device times of other variants of a kernel's timed call, logged beside
 # its device_ms: K4b without the ramp alpha and without the weight, K5 and
@@ -605,7 +626,7 @@ def globals_err(globals_h, offsets, anchor) -> float:
 def scene_diff(pano, imgs, offsets, anchor, anchor_at):
     """Per-pixel max |d| of the panorama against the images pasted at
     their planted offsets (the scene itself), over the pixels they cover:
-    the anchor first at `anchor_at` = (ty, tx), its truncated placement,
+    the anchor first at `anchor_at` = (ty, tx), its placement,
     then the others over it where they are not black (overlay lets the
     canvas show through a (0, 0, 0) pixel, as the reference's does; the
     other blends place the anchor exactly here, so it is the same scene
@@ -1562,6 +1583,72 @@ def driver_phase(torch, mods, none, smi, pair, pair_np, pano_ref,
             h_err_vs_cpu_px=round(err, 6), launches=launches)
 
 
+def pyramid_launches(windows: int) -> dict:
+    """K8 and K9 launches of `windows` 5-level multiband blends: a REDUCE
+    a level below the top, a collapse step a level."""
+    return {"K8": 4 * windows, "K9": 5 * windows}
+
+
+def pyramid_rows(torch, timer, res, device_runs) -> None:
+    """Phase 4's K8 (REDUCE) and K9 (the collapse step): every level of a
+    chain window's 5-level blend torch.equal to the plain versions and
+    the whole blend to ops/blend.py's route on the card; `ms`, the plain
+    version's and the bound at level 0 (the 7 planes of the images and
+    the mask, as _multiband_compose hands them over)."""
+    from pano_tpu_torch.ops import blend, cuda_blend
+
+    h, w = PYRAMID_WINDOW
+    r = np.random.default_rng(90)
+    a = torch.from_numpy(texture(h, w, 91).astype(np.float32)).to(DEVICE)
+    b = torch.from_numpy(texture(h, w, 92).astype(np.float32)).to(DEVICE)
+    seam = np.arange(w)[None, :] + r.integers(-40, 41, (h, 1)) > w // 2
+    m = torch.from_numpy(seam.astype(np.float32)).to(DEVICE)
+    gs = [[*a.unbind(-1), *b.unbind(-1), m]]
+    for _ in range(4):
+        got = cuda_blend.reduce(gs[-1])
+        check(torch.equal(got, cuda_blend.reduce_plain(gs[-1])),
+              f"K8 differs from the plain version at level {len(gs) - 1}")
+        gs.append(list(got))
+    out = None
+    for i in reversed(range(5)):
+        coarse = None if out is None else gs[i + 1][:6] + list(out)
+        got = cuda_blend.collapse_step(gs[i], coarse)
+        check(torch.equal(got, cuda_blend.collapse_step_plain(gs[i], coarse)),
+              f"K9 differs from the plain version at level {i}")
+        out = got
+    check(torch.equal(out.permute(1, 2, 0), blend.laplacian_blend(a, b, m, 5)),
+          "the pyramid kernels' blend differs from ops/blend.py's route")
+    cuda_blend.reduce_launches = cuda_blend.collapse_launches = 0
+    cuda_blend.laplacian_blend(a, b, m, 5)
+    launches = {"K8": cuda_blend.reduce_launches,
+                "K9": cuda_blend.collapse_launches}
+    check(launches == pyramid_launches(1), f"pyramid launches {launches}")
+    g0, g1 = gs[0], gs[1]
+    fine, coarse = g0, g1[:6] + list(torch.rand_like(torch.stack(g1[:3])))
+    planes = h * w
+    calls = {
+        "K8": (functools.partial(cuda_blend.reduce, g0),
+               functools.partial(cuda_blend.reduce_plain, g0),
+               # 7 planes read, 7 quarter planes written
+               bound(planes * 7 * 4 * 1.25, planes // 4 * 7 * K8_OPS_PER_PX)),
+        "K9": (functools.partial(cuda_blend.collapse_step, fine, coarse),
+               functools.partial(cuda_blend.collapse_step_plain, fine,
+                                 coarse),
+               # 7 planes read, 9 quarter planes read, 3 planes written
+               bound(planes * 4 * (7 + 9 / 4 + 3), planes * K9_OPS_PER_PX)),
+    }
+    for k, (fn, plain, bnd) in calls.items():
+        res[k] = dict(max_abs_err=0.0, ms=timer(fn), plain_ms=timer(plain),
+                      library_ms=None, bound=bnd)
+        device_runs.append((k, "device_ms", fn, None))
+        log(f"{k} {PYRAMID[k][0]}", shape=(h, w), levels=5,
+            launches_a_window=launches[k], **res[k])
+    log("pyramid blend", shape=(h, w),
+        blend_ms=timer(lambda: cuda_blend.laplacian_blend(a, b, m, 5)),
+        route_ms=timer(lambda: blend.laplacian_blend(a, b, m, 5), reps=3),
+        equal_to_route=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1595,8 +1682,8 @@ def main() -> None:
 
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.ops import (
-        cuda_compose, cuda_eigh, cuda_gather, cuda_harris, cuda_match,
-        cuda_warp, harris, match, ransac,
+        cuda_blend, cuda_compose, cuda_eigh, cuda_gather, cuda_harris,
+        cuda_match, cuda_warp, harris, match, ransac,
     )
     from pano_tpu_torch.ops import warp as warp_ops
     from pano_tpu_torch.pipeline import fused_canvas_geometry
@@ -1950,6 +2037,8 @@ def main() -> None:
         sweeps=cuda_eigh.SWEEPS, one_minus_cos_vs_f64=align, **res["K7"])
     del ata_seen, got, want
 
+    pyramid_rows(torch, timer, res, device_runs)
+
     # Device time of each kernel, taken after every `ms` above so that
     # those stay as earlier versions of this script took them: the card
     # warmed first, and a spin before each run, so that the wrapper's
@@ -1967,7 +2056,8 @@ def main() -> None:
         K4b_no_weight=res["K4b"]["device_ms_no_weight"],
         K5_overlay=res["K5"]["device_ms_overlay"],
         K6_overlay=res["K6"]["device_ms_overlay"],
-        **{f"K1_nms{n}": res["K1"][f"device_ms_nms{n}"] for n in K1_WINDOWS})
+        **{f"K1_nms{n}": res["K1"][f"device_ms_nms{n}"] for n in K1_WINDOWS},
+        **{k: res[k]["device_ms"] for k in PYRAMID})
     del device_runs, fn, setup, rgb, w, work, ref, base_c, base_w
 
     # RANSAC's default table, JAX's randint, made on the card from a
@@ -1994,7 +2084,9 @@ def main() -> None:
             "K6": (cuda_compose, "chain_launches"),
             "K7": (cuda_eigh, "launches"),
             "K1b": (cuda_harris, "batched_launches"),
-            "K4bb": (cuda_warp, "batched_packed_launches")}
+            "K4bb": (cuda_warp, "batched_packed_launches"),
+            "K8": (cuda_blend, "reduce_launches"),
+            "K9": (cuda_blend, "collapse_launches")}
     none = dict.fromkeys(mods, 0)
     front = {**none, "K1": 2, "K2": 2, "K3": 1, "K7": 1}
 
@@ -2048,9 +2140,10 @@ def main() -> None:
                              ("feather+gain", "feather", True)):
         st = stitch_config(blend, gain)
         torch.cuda.reset_peak_memory_stats()
+        pyr = pyramid_launches(1) if blend == "multiband" else {}
         out, launches_x, wall = stitch_once(
             torch, st, left, right, mods,
-            {**front, "K4b": 1, "K5": 1}, tag)
+            {**front, "K4b": 1, "K5": 1, **pyr}, tag)
         peak = torch.cuda.max_memory_allocated() / 2**20
         corner_err, ov = check_planted(st, out, left, tag)
         stats = overlap_stats(ov)
@@ -2115,11 +2208,13 @@ def main() -> None:
         t_mat, _, _ = pipeline.global_canvas_geometry(imgs, gs, anchor)
         corner_err = globals_err(gs, offsets, anchor)
         check(corner_err < 0.5, f"{tag}: a global is off by {corner_err} px")
-        d, n_band = scene_diff(pano, imgs, offsets, anchor,
-                               (int(t_mat[1, 2]), int(t_mat[0, 2])))
+        # The anchor at the pixel nearest its exact place, as blend_global
+        # puts it.
+        anchor_at = (int(np.round(t_mat[1, 2])), int(np.round(t_mat[0, 2])))
+        d, n_band = scene_diff(pano, imgs, offsets, anchor, anchor_at)
         stats = dict(max=int(d.max()), share_gt1=float((d > 1).mean()),
                      bar=bar, edge_band_px=n_band, anchor=anchor,
-                     anchor_at=(int(t_mat[1, 2]), int(t_mat[0, 2])))
+                     anchor_at=anchor_at)
         check(stats["max"] <= bar, f"{tag}: panorama vs scene {stats}")
         return round(corner_err, 5), stats
 
@@ -2131,8 +2226,9 @@ def main() -> None:
         cfg = DEFAULT_CONFIG.replace(stitch=dataclasses.replace(
             DEFAULT_CONFIG.stitch, blend=blend, gain_compensation=gain))
         k6 = n - 1 if blend != "multiband" and not gain else 0
+        pyr = pyramid_launches(n - 1) if blend == "multiband" else {}
         want = {**none, "K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
-                "K7": n - 1, "K4b": n - 1, "K6": k6}
+                "K7": n - 1, "K4b": n - 1, "K6": k6, **pyr}
 
         def call():
             return stitch_all_images(strip, cfg, True, "", DEVICE, "chain")
@@ -2148,6 +2244,8 @@ def main() -> None:
             out, strip_np, STRIP, seen, 3 if blend == "multiband" else 2,
             f"chain {tag}")
         walls = [wall]
+        if tag == "multiband":
+            chain_pyramid = launches_c
         if tag == "overlay":  # warm calls: median of 3, each equal
             chain_launches = launches_c
             chain_ref = out  # phase 12's CLI must write these bytes
@@ -2254,8 +2352,9 @@ def main() -> None:
     # 15. the record lines
     all_launches = {**launches, "K4b": launches_f["K4b"],
                     "K5": launches_f["K5"], "K6": chain_launches["K6"],
-                    "K1b": launches_s["K1b"], "K4bb": launches_s["K4bb"]}
-    names = {**KERNELS, **BATCHED}
+                    "K1b": launches_s["K1b"], "K4bb": launches_s["K4bb"],
+                    "K8": chain_pyramid["K8"], "K9": chain_pyramid["K9"]}
+    names = {**KERNELS, **BATCHED, **PYRAMID}
     print(smi)
     print(json.dumps({"kernels": [
         {"name": names[k][0], "route": "cuda", "source": names[k][1],

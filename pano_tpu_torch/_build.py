@@ -78,6 +78,10 @@ SIGNATURES = {
     "pano_compose_chain_canvas": [_V] * 4 + [_I] * 6 + [_V],
     # ata, out, sweeps, stream
     "pano_smallest_eigvec9": [_V, _V, _I, _V],
+    # plane table (host), n_ch, h, w, out, stream
+    "pano_pyramid_reduce": [_V, _I, _I, _I, _V, _V],
+    # fine, coarse (or null), out plane tables (host), H, W, h, w, stream
+    "pano_pyramid_collapse": [_V, _V, _V, _I, _I, _I, _I, _V],
 }
 
 _lib = None

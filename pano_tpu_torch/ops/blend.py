@@ -7,7 +7,9 @@ seam), high frequencies switch sharply (no ghosting).
 
 Plain PyTorch, as the JAX package leaves it to XLA: the 5x5 binomial
 blurs are the tap sums of ``ops/conv.py``, in the same tap order, so the
-pyramids round like the JAX package's.
+pyramids round like the JAX package's. This is the CPU route and the
+reference of ``ops/cuda_blend.py``, whose kernels compute the same
+values on the card.
 """
 
 from __future__ import annotations

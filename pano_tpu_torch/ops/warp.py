@@ -192,8 +192,10 @@ def _multiband_compose(
     pyramid blurs don't bleed black across the seam; the seam mask prefers
     whichever image is deeper (larger feather weight) at each pixel. A
     window whose sides are not multiples of 2**(levels-1) is padded with
-    uncovered (zero) pixels for the pyramid and cropped after."""
-    from pano_tpu_torch.ops import blend as blend_ops
+    uncovered (zero) pixels for the pyramid and cropped after. The
+    pyramid is ``ops/cuda_blend.py``'s: its kernels on the card, the plain
+    ``ops/blend.py`` on the CPU."""
+    from pano_tpu_torch.ops import cuda_blend
 
     has_l = w_left > 0.0
     has_r = w_right > 0.0
@@ -207,7 +209,7 @@ def _multiband_compose(
         a = torch.nn.functional.pad(a, (0, 0, 0, pw, 0, ph))
         b = torch.nn.functional.pad(b, (0, 0, 0, pw, 0, ph))
         mask = torch.nn.functional.pad(mask, (0, pw, 0, ph))
-    out = blend_ops.laplacian_blend(a, b, mask, levels=_MB_LEVELS)[:h, :w]
+    out = cuda_blend.laplacian_blend(a, b, mask, levels=_MB_LEVELS)[:h, :w]
     out = torch.where((has_l | has_r)[..., None], out, 0.0)
     # The pyramid runs channels-first; hand back a contiguous HWC window.
     return _to_u8(out).contiguous()

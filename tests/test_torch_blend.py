@@ -131,3 +131,47 @@ def test_estimate_gain_matches_jax():
     small = np.zeros_like(overlap)
     small[:5, :5] = True
     assert float(TW._estimate_gain(_t(left), _t(right), _t(small))) == 1.0
+
+
+# --- the plain versions of the pyramid kernels (ops/cuda_blend.py) --------
+
+from pano_tpu_torch.ops import cuda_blend as CB  # noqa: E402
+
+
+@pytest.mark.parametrize("shape,levels", [
+    ((64, 96), 5), ((48, 40), 3), ((16, 16), 5), ((160, 32), 5),
+    ((32, 160), 5), ((8, 8), 1), ((8, 8), 2)])
+@pytest.mark.parametrize("mask", ["seam", "zeros", "ones"])
+def test_fused_plain_route_equals_laplacian_blend(shape, levels, mask):
+    """The kernels' route (REDUCEs, then a collapse step a level, each on
+    its plain version on the CPU): bit for bit ops/blend.py's
+    laplacian_blend, on the smallest 16x16 window (its top level 1x1),
+    tall and wide windows, and masks all 0 and all 1, with no launch;
+    cuda_blend.laplacian_blend on the CPU is that function itself."""
+    a, b, _, w_r = _images(*shape, seed=25)
+    m = {"seam": (w_r > 0.5).astype(np.float32),
+         "zeros": np.zeros(shape, np.float32),
+         "ones": np.ones(shape, np.float32)}[mask]
+    a, b, m = _t(a), _t(b), _t(m)
+    want = TB.laplacian_blend(a, b, m, levels)
+    before = (CB.reduce_launches, CB.collapse_launches)
+    assert torch.equal(CB.kernel_route(a, b, m, levels), want)
+    assert torch.equal(CB.laplacian_blend(a, b, m, levels), want)
+    assert (CB.reduce_launches, CB.collapse_launches) == before
+
+
+def test_pyramid_wrappers_reject_what_the_kernels_do_not_take():
+    x = torch.zeros((8, 8))
+    with pytest.raises(ValueError, match="float32"):
+        CB.reduce([x.double()])
+    with pytest.raises(ValueError, match="differ"):
+        CB.reduce([x, torch.zeros((8, 9))])
+    with pytest.raises(ValueError, match="at most 7"):
+        CB.reduce([x] * 8)
+    with pytest.raises(ValueError, match="takes 7 planes"):
+        CB.collapse_step([x] * 6, None)
+    with pytest.raises(ValueError, match="do not expand"):
+        CB.collapse_step([x] * 7, [torch.zeros((3, 4))] * 9)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        CB.laplacian_blend(torch.zeros((40, 40, 3)),
+                           torch.zeros((40, 40, 3)), torch.zeros((40, 40)))

@@ -1685,3 +1685,160 @@ def test_dispatch_in_flight_equals_the_eager_estimate():
         pano = st.retire(p)
         assert torch.equal(pano, want_pano)
         np.testing.assert_array_equal(st.last_estimate, want_row)
+
+
+# --- multiband's pyramid kernels (ops/cuda_blend.py, csrc/pyramid.cu) -------
+
+CHAIN_WINDOW = (1504, 2016)  # a chain window of the oilseed images, padded
+
+
+def _blend_inputs(shape, seed, mask="seam"):
+    """(a, b, mask) on the card as _multiband_compose hands them over:
+    two (H, W, 3) f32 images of whole numbers, a 0/1 seam mask."""
+    r = np.random.default_rng(seed)
+    h, w = shape
+    a = r.integers(0, 256, (h, w, 3)).astype(np.float32)
+    b = r.integers(0, 256, (h, w, 3)).astype(np.float32)
+    m = {"seam": (np.arange(w)[None, :] + r.integers(-3, 4, (h, 1))
+                  > w // 2).astype(np.float32),
+         "zeros": np.zeros((h, w), np.float32),
+         "ones": np.ones((h, w), np.float32)}[mask]
+    return [torch.from_numpy(x).cuda() for x in (a, b, m)]
+
+
+def _pyramid_levels(shape, seed, levels=5):
+    """The 7 planes of each Gaussian level of a window (level 0 the
+    channels of the (H, W, 3) images), by the plain REDUCE."""
+    from pano_tpu_torch.ops import cuda_blend
+
+    a, b, m = _blend_inputs(shape, seed)
+    gs = [[*a.unbind(-1), *b.unbind(-1), m]]
+    for _ in range(levels - 1):
+        gs.append(list(cuda_blend.reduce_plain(gs[-1])))
+    return gs
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+def test_pyramid_reduce_kernel_vs_plain(level):
+    """REDUCE of a chain window's level (level 0 the strided channels of
+    the images) bit-identical to its plain version, ops/blend.py's _down,
+    on the card, in one launch of all 7 planes."""
+    from pano_tpu_torch.ops import cuda_blend
+
+    planes = _pyramid_levels(CHAIN_WINDOW, 80)[level]
+    cuda_blend.reduce_launches = 0
+    got = cuda_blend.reduce(planes)
+    assert cuda_blend.reduce_launches == 1
+    assert torch.equal(got, cuda_blend.reduce_plain(planes))
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3, 4])
+def test_pyramid_collapse_kernel_vs_plain(level):
+    """The collapse step at each level of a chain window (4 the top:
+    the band alone; 0 reading the strided channels of the images)
+    bit-identical to its plain version, ops/blend.py's _up, band and
+    collapse, with a coarse result that takes negative values."""
+    from pano_tpu_torch.ops import cuda_blend
+
+    gs = _pyramid_levels(CHAIN_WINDOW, 81)
+    coarse = None
+    if level < 4:
+        r = torch.Generator(device="cuda").manual_seed(82)
+        out = torch.rand((3,) + tuple(gs[level + 1][0].shape),
+                         generator=r, device="cuda") * 400 - 100
+        coarse = gs[level + 1][:6] + list(out)
+    cuda_blend.collapse_launches = 0
+    got = cuda_blend.collapse_step(gs[level], coarse)
+    assert cuda_blend.collapse_launches == 1
+    assert torch.equal(got, cuda_blend.collapse_step_plain(gs[level], coarse))
+
+
+@pytest.mark.parametrize("shape", [CHAIN_WINDOW, (16, 16), (1024, 32),
+                                   (32, 1024)])
+@pytest.mark.parametrize("mask", ["seam", "zeros", "ones"])
+def test_laplacian_blend_kernels_vs_plain_route(shape, mask):
+    """The whole 5-level blend on the card, 4 REDUCE and 5 collapse
+    launches, bit-identical to ops/blend.py's tap-per-launch route there:
+    a chain window, the smallest window (its top level 1x1), tall and
+    wide windows, masks all 0 and all 1."""
+    from pano_tpu_torch.ops import blend, cuda_blend
+
+    a, b, m = _blend_inputs(shape, 83, mask)
+    cuda_blend.reduce_launches = cuda_blend.collapse_launches = 0
+    got = cuda_blend.laplacian_blend(a, b, m, 5)
+    assert (cuda_blend.reduce_launches, cuda_blend.collapse_launches) \
+        == (4, 5)
+    assert got.is_cuda and got.shape == a.shape
+    assert torch.equal(got, blend.laplacian_blend(a, b, m, 5))
+
+
+@pytest.mark.parametrize("case", ["chain", "small", "left_only",
+                                  "right_only", "tall", "wide"])
+def test_multiband_compose_kernels_vs_plain_route(case, monkeypatch):
+    """_multiband_compose of an exact window (padded to 16 inside) with
+    the kernels against the plain route on the card: torch.equal u8, one
+    REDUCE of the 7 planes a level below the top and a collapse step a
+    level, per window; windows that only one image covers, the smallest
+    window, tall and wide ones."""
+    from pano_tpu_torch.ops import blend, cuda_blend
+    from pano_tpu_torch.ops import warp as warp_ops
+
+    shape = {"chain": (1502, 2007), "small": (16, 16), "left_only": (333, 250),
+             "right_only": (250, 333), "tall": (1100, 40),
+             "wide": (24, 1500)}[case]
+    r = np.random.default_rng(84)
+    h, w = shape
+    left = r.integers(0, 256, (h, w, 3)).astype(np.float32)
+    right = r.integers(0, 256, (h, w, 3)).astype(np.float32)
+    xs = np.arange(w)[None, :].repeat(h, 0)
+    w_l = np.where(xs < 0.7 * w, r.random((h, w)), 0.0).astype(np.float32)
+    w_r = np.where(xs > 0.3 * w, r.random((h, w)), 0.0).astype(np.float32)
+    if case == "left_only":
+        w_r[:] = 0.0
+    if case == "right_only":
+        w_l[:] = 0.0
+    args = [torch.from_numpy(x).cuda() for x in (left, right, w_l, w_r)]
+    cuda_blend.reduce_launches = cuda_blend.collapse_launches = 0
+    got = warp_ops._multiband_compose(*args)
+    assert (cuda_blend.reduce_launches, cuda_blend.collapse_launches) \
+        == (4, 5)
+    monkeypatch.setattr(cuda_blend, "laplacian_blend", blend.laplacian_blend)
+    want = warp_ops._multiband_compose(*args)
+    assert got.dtype == torch.uint8 and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("mode", ["chain", "auto", "pair"])
+def test_multiband_modes_on_the_card_equal_the_plain_route(mode,
+                                                           monkeypatch):
+    """Chain and auto multiband (blend_window_outputs in the global
+    composite) and the fused multiband pair (PairStitcher._window_context)
+    on the card: byte-equal to the same run with the pyramid on
+    ops/blend.py's plain route, 9 pyramid launches a window."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, stitch_all_images
+    from pano_tpu_torch.ops import blend, cuda_blend
+
+    cfg = DEFAULT_CONFIG.replace(stitch=dataclasses.replace(
+        DEFAULT_CONFIG.stitch, blend="multiband"))
+    imgs = _strip_images(85)
+
+    def run():
+        with contextlib.redirect_stdout(io.StringIO()):
+            if mode == "pair":
+                out = PairStitcher(cfg, print_timing=False, device="cuda") \
+                    .stitch_pair_fast(imgs[0], imgs[1])
+                return out.cpu().numpy()
+            return stitch_all_images(imgs, cfg, mode=mode, device="cuda")
+
+    cuda_blend.reduce_launches = cuda_blend.collapse_launches = 0
+    got = run()
+    windows = 1 if mode == "pair" else len(imgs) - 1
+    assert (cuda_blend.reduce_launches, cuda_blend.collapse_launches) \
+        == (4 * windows, 5 * windows)
+    monkeypatch.setattr(cuda_blend, "laplacian_blend", blend.laplacian_blend)
+    want = run()
+    assert isinstance(got, np.ndarray) and got.shape[0] > 0
+    np.testing.assert_array_equal(got, want)
