@@ -28,6 +28,35 @@ def _img(shape, seed):
                                                 dtype=np.uint8)
 
 
+_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _smoke():
+    """chip_smoke.py (the kernel table's script): its planted images and
+    the main-path checks its phase 5 shares with these tests."""
+    import sys
+
+    if _REPO not in sys.path:
+        sys.path.insert(0, _REPO)
+    import chip_smoke
+    return chip_smoke
+
+
+@pytest.fixture(scope="module")
+def planted():
+    """chip_smoke.py's planted 4156x3117 pair (the right image the left
+    one's scene shifted by (DX, DY)) on the card, and its strip of four
+    crops of one 8356x3169 scene at the STRIP offsets, on the host and on
+    the card."""
+    import types
+
+    s = _smoke()
+    _, strip = s.synthetic_strip(0)
+    return types.SimpleNamespace(
+        s=s, pair=[torch.from_numpy(im).cuda() for im in s.synthetic_pair(0)],
+        strip=strip, strip_dev=[torch.from_numpy(im).cuda() for im in strip])
+
+
 @pytest.mark.parametrize("shape", [(300, 700), (151, 333), (5, 9),
                                    (3117, 4156), (64, 241), (97, 121)])
 def test_harris_kernel_vs_plain(shape):
@@ -493,6 +522,48 @@ WARP_PACKED_CASES = {
 }
 
 
+# Beside the first test that starts torch.profiler in the process: on the
+# H100 machine the profiler's kernel timestamps drift ahead of its host
+# clock by ~0.1 ms a second after that first start, and a kernel that
+# lands past the end of a short profiled window is dropped from the trace
+# (a window of three ~0.05 ms launches lost one of them 15 s after the
+# first start, all three 45 s after).
+def test_trace_summary_reads_a_cuda_trace(tmp_path):
+    """A torch.profiler trace of K1 and a copy: device time and the
+    kernel's name, with the union no more than the events' sum."""
+    import contextlib
+    import io
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from pano_tpu_torch.ops import cuda_harris
+
+    _, _, _, tts = _scripts()
+    img = torch.from_numpy(_img((480, 640), 83)).cuda()
+    cuda_harris.harris_scores(img, 0.04, 1e6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            cuda_harris.harris_scores(img, 0.04, 1e6)
+        img.cpu()
+        torch.cuda.synchronize()
+    path = str(tmp_path / "t.json")
+    prof.export_chrome_trace(path)
+    trace = tts.load(path)
+    dev = tts._complete(trace, tts.DEVICE_CATS)
+    busy = tts.device_busy_ms(trace)
+    # `ts` is an absolute time in us (~1e12): an interval's end - start
+    # carries the last bits of its float64, ~1e-3 us an event.
+    assert 0 < busy <= sum(e["dur"] for e in dev) / 1e3 + 1e-6 * len(dev)
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        tts.summarize(trace)
+    k1 = [line for line in text.getvalue().splitlines()
+          if "harris_scores_kernel" in line]
+    assert k1 and k1[0].rstrip().endswith("x3")
+
+
 @pytest.mark.parametrize("case", list(WARP_PACKED_CASES))
 @pytest.mark.parametrize("has_alpha", [False, True])
 def test_warp_packed_kernel_vs_plain(has_alpha, case):
@@ -763,6 +834,112 @@ def test_cli_gpu_runs_on_the_card(tmp_path):
         "cuda", True, list(want.shape))
 
 
+_STAGE_LABELS = ("Harris Corner Detection", "Harris Corner Detection",
+                 "Harris Corner Matching", "RANSAC Homography Estimation",
+                 "Image Stitching")
+# case -> (impl, images, flags, the stitch's lines, its launches)
+_CLI_CASES = {
+    "fold_feather": ("gpu", 2, ["--mode", "fold", "--blend", "feather"],
+                     ["Image Stitching (GPU)"],
+                     {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K4b": 1, "K5": 1}),
+    "stages": ("gpu", 2, ["--timing", "stages"],
+               [f"{s} (GPU)" for s in _STAGE_LABELS],
+               {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K4a": 1}),
+    "sharded_chain": ("sharded", 4, ["--mode", "chain"], [],
+                      {"K1b": 1, "K2": 6, "K3": 3, "K7": 3, "K4bb": 1,
+                       "K6": 3}),
+}
+# The sharded chain on the planted 4156x3117 strip's files.
+_CLI_CASES["sharded_chain_planted"] = _CLI_CASES["sharded_chain"]
+
+
+@pytest.mark.parametrize("case", list(_CLI_CASES))
+def test_cli_modes_on_the_card(tmp_path, case, request):
+    """cli.run on the card: fold with feather (K4b + K5), the staged pair
+    (its stage lines) and the sharded chain, small and on the planted
+    strip: the printed lines with the impl's tag, each kernel's launches,
+    and the file equal to the library's panorama (the one-device chain's
+    for the sharded one)."""
+    import contextlib
+    import io
+    import re
+
+    from pano_tpu_torch import cli, io as tio
+    from pano_tpu_torch import stitch_all_images
+
+    impl, n, flags, stage_lines, want_launches = _CLI_CASES[case]
+    tag = "GPU" if impl == "gpu" else "Sharded"
+    imgs = (request.getfixturevalue("planted").strip
+            if case.endswith("planted") else _strip_images(86, n=n))
+    paths = [str(tmp_path / f"s{i}.ppm") for i in range(n)]
+    for p, im in zip(paths, imgs):
+        tio.write_ppm(p, im)
+    out = str(tmp_path / "p.ppm")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = _smoke().launches(
+            lambda: cli.run(impl, [*paths, *flags, "--out", out]))
+    lines = [re.sub(r": \d+\.\d{3} ms$", ": x ms", x)
+             for x in buf.getvalue().splitlines()]
+    assert rc == 0 and launches == want_launches, (launches, lines)
+    assert lines == [
+        "PyTorch backend: cuda",
+        f"Number of Available Devices: {torch.cuda.device_count()}",
+        *(f"Stitching image {i} of {n}..." for i in range(2, n + 1)),
+        *(f"{s}: x ms" for s in stage_lines),
+        f"Total Stitching Process ({tag}): x ms",
+        f"Stitched result saved to {out}", "",
+        f"Total Execution Time ({tag}): x ms"]
+    cfg = _smoke().blend_config("feather" if case == "fold_feather"
+                                else "overlay")
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = stitch_all_images(
+            imgs, cfg, device="cuda", mode="chain" if n > 2 else "fold",
+            timing="stages" if case == "stages" else "total")
+    np.testing.assert_array_equal(tio.imread_bgr(out), want)
+
+
+def test_serve_gpu_on_the_card(tmp_path):
+    """serve gpu with four jobs (a chain, with feather, the chain again
+    from the staging cache, one image): jobs 1-3 ok and 4 failed, in
+    order; no staging failure reported; jobs 1 and 3 byte-equal, and the
+    chain of stitch_all_images on the card."""
+    import contextlib
+    import io
+    import re
+
+    from pano_tpu_torch import DEFAULT_CONFIG, cli, io as tio
+    from pano_tpu_torch import stitch_all_images
+
+    imgs = _strip_images(87)
+    paths = [str(tmp_path / f"s{i}.ppm") for i in range(len(imgs))]
+    for p, im in zip(paths, imgs):
+        tio.write_ppm(p, im)
+    outs = [str(tmp_path / f"o{j}.ppm") for j in range(1, 5)]
+    chain = " ".join(paths)
+    jobs = io.StringIO(f"{chain} --out {outs[0]}\n"
+                       f"{chain} --blend feather --out {outs[1]}\n"
+                       f"{chain} --out {outs[2]}\n"
+                       f"{paths[0]} --out {outs[3]}\n"
+                       "quit\n")
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.serve("gpu", ["--mode", "chain"], stdin=jobs)
+    assert rc == 0, out.getvalue() + err.getvalue()
+    status = re.findall(r"^Job (\d+) (ok|failed) \S+: \d+\.\d{3} ms$",
+                        out.getvalue(), re.M)
+    assert status == [("1", "ok"), ("2", "ok"), ("3", "ok"),
+                      ("4", "failed")], out.getvalue()
+    assert "staging" not in err.getvalue(), err.getvalue()
+    first, again = (open(p, "rb").read() for p in outs[::2])
+    assert first == again
+    assert os.path.exists(outs[1]) and not os.path.exists(outs[3])
+    with contextlib.redirect_stdout(io.StringIO()):
+        want = stitch_all_images(imgs, DEFAULT_CONFIG, mode="chain",
+                                 device="cuda")
+    np.testing.assert_array_equal(tio.imread_bgr(outs[0]), want)
+
+
 # --- the batched entries (K1, K4b) and the sharded paths ------------------
 
 
@@ -938,34 +1115,115 @@ def _strip_images(seed, n=4, h=128, step=70, w=140):
     return [base[:, i * step:i * step + w].copy() for i in range(n)]
 
 
-@pytest.mark.parametrize("n_data", [1, 3])
-@pytest.mark.parametrize("mode", ["chain", "auto"])
-def test_sharded_modes_on_the_card_equal_one_device(mode, n_data):
-    """stitch_all_images_sharded on a mesh of the card (repeated n_data
-    times) gives the one-device mode's panorama byte for byte, through
-    batched K1 (one launch per data shard, or per image stack in auto)
-    and batched K4b."""
+# case -> (mode, data shards, hyp shards); the planted cases run on the
+# planted 4156x3117 strip
+_SHARDED_CASES = {"chain-1": ("chain", 1, 1), "chain-3": ("chain", 3, 1),
+                  "auto-1": ("auto", 1, 1), "auto-3": ("auto", 3, 1),
+                  "fold-1": ("fold", 1, 1), "fold-4": ("fold", 1, 4)}
+_SHARDED_CASES.update({f"planted-{k}": _SHARDED_CASES[k]
+                       for k in ("chain-1", "chain-3", "auto-1", "fold-4")})
+
+
+@pytest.mark.parametrize("case", list(_SHARDED_CASES))
+def test_sharded_modes_on_the_card_equal_one_device(case, request,
+                                                    monkeypatch):
+    """stitch_all_images_sharded on a mesh of the card (repeated over the
+    data or the hyp axis) gives the one-device mode's panorama byte for
+    byte. Chain and auto run batched K1 (one launch per data shard, or
+    per image stack in auto) and batched K4b; the fold runs the pair's
+    kernels and prints the staged fold's lines under the tag (Sharded),
+    and on hyp 4 each pair's H is within 0.5 px of its planted offset at
+    the image's corners. The planted cases run on the 4156x3117 strip
+    (auto on it shuffled)."""
     import contextlib
     import io
+    import re
 
-    from pano_tpu_torch import DEFAULT_CONFIG, stitch_all_images
-    from pano_tpu_torch.ops import cuda_harris, cuda_warp
+    from pano_tpu_torch import DEFAULT_CONFIG, pipeline, stitch_all_images
     from pano_tpu_torch.parallel import shard
 
-    imgs = _strip_images(71)
-    mesh = shard.make_mesh(n_data, 1,
-                           devices=[torch.device("cuda")] * n_data)
+    mode, n_data, n_hyp = _SHARDED_CASES[case]
+    if case.startswith("planted"):
+        p = request.getfixturevalue("planted")
+        order = p.s.AUTO_ORDER if mode == "auto" else range(len(p.s.STRIP))
+        imgs = [p.strip_dev[i] for i in order]
+        offsets = [p.s.STRIP[i] for i in order]
+    else:
+        imgs = _strip_images(73, n=3) if mode == "fold" else _strip_images(71)
+        offsets = [(70 * i, 0) for i in range(len(imgs))]
+    n = len(imgs)
+    mesh = shard.make_mesh(n_data, n_hyp,
+                           devices=[torch.device("cuda")] * (n_data * n_hyp))
     with contextlib.redirect_stdout(io.StringIO()):
         want = stitch_all_images(imgs, DEFAULT_CONFIG, mode=mode,
                                  device="cuda")
-        cuda_harris.launches = cuda_harris.batched_launches = 0
-        cuda_warp.packed_launches = cuda_warp.batched_packed_launches = 0
-        got = shard.stitch_all_images_sharded(imgs, DEFAULT_CONFIG,
-                                              mesh=mesh, mode=mode)
-    assert cuda_harris.launches == 0 and cuda_warp.packed_launches == 0
-    assert cuda_harris.batched_launches == (n_data if mode == "chain" else 1)
-    assert cuda_warp.batched_packed_launches == n_data
+    hs = []
+    composite = pipeline.PairStitcher.composite
+
+    def spy(self, left, right, h):
+        hs.append(np.array(h, np.float64))
+        return composite(self, left, right, h)
+
+    monkeypatch.setattr(pipeline.PairStitcher, "composite", spy)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        got, launches = _smoke().launches(
+            lambda: shard.stitch_all_images_sharded(
+                imgs, DEFAULT_CONFIG, mesh=mesh, mode=mode))
     np.testing.assert_array_equal(got, want)
+    if mode != "fold":
+        assert "K1" not in launches and "K4b" not in launches, launches
+        assert launches["K1b"] == (n_data if mode == "chain" else 1)
+        assert launches["K4bb"] == n_data
+        return
+    assert launches == {"K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
+                        "K7": n - 1, "K4a": n - 1}
+    assert re.sub(r": \d+\.\d{3} ms", ": x ms",
+                  out.getvalue()).splitlines() == [
+        *(x for i in range(2, n + 1) for x in (
+            f"Stitching image {i} of {n}...",
+            *(f"{s} (Sharded): x ms" for s in _STAGE_LABELS))),
+        "Total Stitching Process (Sharded): x ms"]
+    if n_hyp > 1:
+        errs = [_smoke().corner_err(g, imgs[0].shape[:2], offsets[i])
+                for i, g in enumerate(hs, 1)]
+        assert len(errs) == n - 1 and max(errs) < 0.5, errs
+
+
+@pytest.mark.parametrize("size", ["small", "planted"])
+def test_stitch_pairs_batched_on_the_card(size, request):
+    """Four pairs on the default mesh (every card, one hyp), small crops
+    or the planted strip's three pairs and the planted pair (4156x3117):
+    each estimate row torch.equal to the pair stitcher's, each canvas
+    PairStitcher.composite's of that row's H, through one batched K1
+    launch, K2 x8, K3 x4, K7 x4, K5 x4 and a batched K4b launch for each
+    group of equal canvases (1-4)."""
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+    from pano_tpu_torch.parallel import shard
+
+    assert shard.make_mesh().shape == {"data": torch.cuda.device_count(),
+                                       "hyp": 1}
+    if size == "planted":
+        p = request.getfixturevalue("planted")
+        lefts = torch.stack([*p.strip_dev[:3], p.pair[0]])
+        rights = torch.stack([*p.strip_dev[1:], p.pair[1]])
+    else:
+        imgs = [torch.from_numpy(im).cuda() for im in _strip_images(74, n=5)]
+        lefts, rights = torch.stack(imgs[:4]), torch.stack(imgs[1:])
+    st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
+    rows, _ = shard.fused_estimate_batched(lefts, rights, DEFAULT_CONFIG)
+    singles = [st._fused_estimate_impl(lefts[k], rights[k])[0]
+               for k in range(4)]
+    assert all(torch.equal(rows[k], singles[k]) for k in range(4))
+    panos, launches = _smoke().launches(lambda: shard.stitch_pairs_batched(
+        lefts, rights, DEFAULT_CONFIG))
+    groups = launches.pop("K4bb")
+    assert launches == {"K1b": 1, "K2": 8, "K3": 4, "K7": 4, "K5": 4}
+    assert 1 <= groups <= 4
+    for k, row in enumerate(singles):
+        h = row[:9].cpu().numpy().astype(np.float64).reshape(3, 3)
+        want = st.composite(lefts[k], rights[k], h)
+        assert torch.equal(torch.from_numpy(panos[k]), want.cpu())
 
 
 def test_sharded_paths_across_cards():
@@ -1025,9 +1283,6 @@ def test_sharded_paths_across_cards():
 
 
 # --- the measuring and driver layer ----------------------------------------
-
-_REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
 
 def _scripts():
     """The port's scripts at the repository root and under tools/, as
@@ -1110,19 +1365,31 @@ def test_dispatch_on_a_card_that_is_not_current():
                 np.testing.assert_array_equal(st.last_estimate, row)
 
 
-@pytest.mark.parametrize("depth", [1, 3])
-def test_throughput_loop_on_the_card(depth):
+@pytest.mark.parametrize("depth,size", [
+    pytest.param(1, "small", id="1"), pytest.param(3, "small", id="3"),
+    pytest.param(1, "planted", id="planted-1"),
+    pytest.param(3, "planted", id="planted-3")])
+def test_throughput_loop_on_the_card(depth, size, request):
+    """The throughput script's loop on three small pairs of different
+    canvases, or on the planted 4156x3117 pair: no fallback, the overlay
+    pair's launches once for each pair of the loop and its warm-up, every
+    retired panorama and row the single-sync path's, and no host sync
+    inside a pair."""
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
 
     _, bt, _, _ = _scripts()
-    pairs = _shifted_pairs(81)
+    pairs = (_shifted_pairs(81) if size == "small"
+             else [tuple(request.getfixturevalue("planted").pair)])
     st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda")
     want = [_parent_path(st, left, right) for left, right in pairs]
-    out = bt.throughput(st, *pairs[0], 6, depth)
+    out, launches = _smoke().launches(
+        lambda: bt.throughput(st, *pairs[0], 6, depth))
     assert out["fallback_pairs"] == 0 and out["depth"] == depth
-    got = list(bt.pipelined(st, pairs * 2, depth))
+    assert launches == {k: 7 * n for k, n in _smoke().PAIR_LAUNCHES.items()}
+    reps = 6 // len(pairs)
+    got = list(bt.pipelined(st, pairs * reps, depth))
     assert len(got) == 6
-    for (pano, row), (want_pano, want_row) in zip(got, want * 2):
+    for (pano, row), (want_pano, want_row) in zip(got, want * reps):
         assert torch.equal(pano, want_pano)
         np.testing.assert_array_equal(row, want_row)
     # Nothing waits for the card inside a pair but retire's event.
@@ -1130,9 +1397,11 @@ def test_throughput_loop_on_the_card(depth):
     assert syncs == 0
 
 
-def test_bench_measure_on_the_card():
+def test_bench_measure_on_the_card(planted):
     """bench.py's keys, device_compute_ms between 0 and the wall value,
-    and the block's last panorama stitch_pair_fast's."""
+    the overlay pair's launches once for the warm-up, each timed call and
+    each traced one, and the block's last panorama stitch_pair_fast's: on
+    a small pair and on the planted 4156x3117 pair."""
     import ast
 
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
@@ -1143,63 +1412,33 @@ def test_bench_measure_on_the_card():
             and any(isinstance(k, ast.Constant) and k.value == "metric"
                     for k in node.keys) for k in node.keys}
     keys |= {"device_compute_ms"}   # added where bench.py's trace worked
-    left, right = _strip_images(82, n=2)
-    out, pano = bench._measure(left, right, 2, "cuda")
-    assert set(out) == keys == {"metric", "value", "unit", "vs_baseline",
-                                "device_compute_ms"}
-    assert 0 < out["device_compute_ms"] < out["value"]
-    want = PairStitcher(DEFAULT_CONFIG, print_timing=False,
-                        device="cuda").stitch_pair_fast(left, right)
-    assert torch.equal(pano, want)
-
-
-def test_trace_summary_reads_a_cuda_trace(tmp_path):
-    """A torch.profiler trace of K1 and a copy: device time and the
-    kernel's name, with the union no more than the events' sum."""
-    import contextlib
-    import io
-
-    from torch.profiler import ProfilerActivity, profile
-
-    from pano_tpu_torch.ops import cuda_harris
-
-    _, _, _, tts = _scripts()
-    img = torch.from_numpy(_img((480, 640), 83)).cuda()
-    cuda_harris.harris_scores(img, 0.04, 1e6)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            cuda_harris.harris_scores(img, 0.04, 1e6)
-        img.cpu()
-        torch.cuda.synchronize()
-    path = str(tmp_path / "t.json")
-    prof.export_chrome_trace(path)
-    trace = tts.load(path)
-    dev = tts._complete(trace, tts.DEVICE_CATS)
-    busy = tts.device_busy_ms(trace)
-    # `ts` is an absolute time in us (~1e12): an interval's end - start
-    # carries the last bits of its float64, ~1e-3 us an event.
-    assert 0 < busy <= sum(e["dur"] for e in dev) / 1e3 + 1e-6 * len(dev)
-    text = io.StringIO()
-    with contextlib.redirect_stdout(text):
-        tts.summarize(trace)
-    k1 = [line for line in text.getvalue().splitlines()
-          if "harris_scores_kernel" in line]
-    assert k1 and k1[0].rstrip().endswith("x3")
+    calls = 1 + 2 + bench.TRACE_REPS
+    for left, right in (_strip_images(82, n=2), planted.pair):
+        (out, pano), launches = _smoke().launches(
+            lambda: bench._measure(left, right, 2, "cuda"))
+        assert set(out) == keys == {"metric", "value", "unit", "vs_baseline",
+                                    "device_compute_ms"}
+        assert 0 < out["device_compute_ms"] < out["value"]
+        assert launches == {k: calls * n
+                            for k, n in _smoke().PAIR_LAUNCHES.items()}
+        want = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                            device="cuda").stitch_pair_fast(left, right)
+        assert torch.equal(pano, want)
 
 
 def test_graft_entry_on_the_card():
     """entry() and dryrun_multichip(1), (2) on the card (repeated where
     there is one) against the CPU's: the same inlier counts, H within
-    0.5 px at the corners."""
+    0.5 px at the corners; the entry's forward step launches the pair's
+    estimate kernels and no compose kernel."""
     import contextlib
     import io
 
     _, _, ge, _ = _scripts()
     fn, args = ge.entry()
     assert all(a.device.type == "cuda" for a in args)
-    h, count, canvas = fn(*args)
+    (h, count, canvas), launches = _smoke().launches(lambda: fn(*args))
+    assert launches == {"K1": 2, "K2": 2, "K3": 1, "K7": 1}
     fn_c, args_c = ge.entry("cpu")
     h_c, count_c, canvas_c = fn_c(*args_c)
     c = np.array([[0, 0, 1], [160, 0, 1], [160, 128, 1], [0, 128, 1]], float)
@@ -1453,14 +1692,8 @@ def test_eigh9_kernel_vs_plain(name):
 def _planted_normal_matrices():
     """The refine's A^T A of chip_smoke.py's planted 4156x3117 pair and of
     three small pairs, as the card's estimate hands them to K7."""
-    import sys
-
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.ops import cuda_eigh
-
-    if _REPO not in sys.path:
-        sys.path.insert(0, _REPO)
-    import chip_smoke
 
     seen = []
     kernel = cuda_eigh.smallest_eigvec9
@@ -1474,7 +1707,7 @@ def _planted_normal_matrices():
     st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda",
                       sampler=_default_table(DEFAULT_CONFIG.ransac))
     pairs = [tuple(torch.from_numpy(im).cuda()
-                   for im in chip_smoke.synthetic_pair(0))]
+                   for im in _smoke().synthetic_pair(0))]
     pairs += _shifted_pairs(97)
     cuda_eigh.smallest_eigvec9 = record
     try:
@@ -1580,19 +1813,13 @@ def _planted_and_strip_points():
     """The match points of chip_smoke.py's planted 4156x3117 pair and of
     its strip's three adjacent pairs, as the fused estimate hands them to
     RANSAC (found by the eager estimate)."""
-    import sys
-
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
-
-    if _REPO not in sys.path:
-        sys.path.insert(0, _REPO)
-    import chip_smoke
 
     st = PairStitcher(DEFAULT_CONFIG, print_timing=False, device="cuda",
                       sampler=_default_table(DEFAULT_CONFIG.ransac))
-    pair = [torch.from_numpy(im).cuda() for im in chip_smoke.synthetic_pair(0)]
+    pair = [torch.from_numpy(im).cuda() for im in _smoke().synthetic_pair(0)]
     strip = [torch.from_numpy(im).cuda()
-             for im in chip_smoke.synthetic_strip(0)[1]]
+             for im in _smoke().synthetic_strip(0)[1]]
     pairs = [tuple(pair)] + list(zip(strip[:-1], strip[1:]))
     return [st._fused_estimate_impl(a, b)[1] for a, b in pairs]
 
@@ -1842,3 +2069,74 @@ def test_multiband_modes_on_the_card_equal_the_plain_route(mode,
     want = run()
     assert isinstance(got, np.ndarray) and got.shape[0] > 0
     np.testing.assert_array_equal(got, want)
+
+
+# --- chip_smoke.py's phase 5 on the planted scene at full size -------------
+
+
+@pytest.mark.parametrize("blend,gain", [("overlay", False),
+                                        ("feather", False),
+                                        ("multiband", False),
+                                        ("feather", True)],
+                         ids=["overlay", "feather", "multiband",
+                              "feather_gain"])
+def test_planted_pair_on_the_card(planted, blend, gain):
+    """chip_smoke.pair_on_card with each blend: stitch_pair_fast on the
+    planted pair, the graphed estimate; each kernel's launches (overlay
+    K4a, the others K4b + K5, multiband's pyramid 4 + 5), H within 0.5 px
+    at the corners, the planted canvas, the overlap the left image within
+    1 (multiband 2, also on the planted H itself), overlay's repeat."""
+    planted.s.pair_on_card(planted.pair, blend, gain)
+
+
+def test_planted_staged_pair_on_the_card(planted, capsys):
+    """stitch_pair with print_timing on the planted pair: the stage lines
+    in the reference's format (a detection line an image), and the
+    panorama within a row, a column and 1 of the fused one."""
+    import re
+
+    from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
+
+    left, right = planted.pair
+    fused = PairStitcher(DEFAULT_CONFIG, print_timing=False,
+                         device="cuda").stitch_pair_fast(left, right)
+    capsys.readouterr()
+    staged = PairStitcher(DEFAULT_CONFIG, print_timing=True,
+                          device="cuda").stitch_pair(left, right)
+    torch.cuda.synchronize()
+    lines = capsys.readouterr().out.splitlines()
+    assert [re.fullmatch(r"(.+): \d+\.\d{3} ms", x).group(1)
+            for x in lines] == list(_STAGE_LABELS), lines
+    assert staged.is_cuda
+    assert all(abs(a - b) <= 1 for a, b in zip(staged.shape, fused.shape))
+    h, w = (min(a, b) for a, b in zip(staged.shape[:2], fused.shape[:2]))
+    assert int((staged[:h, :w].int() - fused[:h, :w].int()).abs().max()) <= 1
+
+
+@pytest.mark.parametrize("case", ["chain_overlay", "chain_feather",
+                                  "chain_multiband", "chain_feather_gain",
+                                  "auto", "fold_total"])
+def test_planted_strip_on_the_card(planted, case):
+    """chip_smoke.strip_on_card: stitch_all_images on the planted strip,
+    chain with each blend, auto on the strip shuffled, fold with
+    timing="total": its printed lines, each kernel's launches, the planted
+    canvas, each global within 0.5 px of the planted one, the panorama
+    against the scene within 2 (multiband 3); the overlay chain's repeat."""
+    planted.s.strip_on_card(planted.strip, planted.strip_dev, case)
+
+
+@pytest.mark.parametrize("blend,bar", [("overlay", 0), ("feather", 1),
+                                       ("multiband", 2)])
+def test_planted_globals_composite_on_the_card(planted, blend, bar):
+    """composite_global on the strip's planted globals themselves (no
+    estimate error): the scene's canvas, and the scene over the covered
+    pixels, overlay exactly, feather within 1, multiband within 2."""
+    from pano_tpu_torch import pipeline
+
+    s = planted.s
+    gs = [s.translation(x, y) for x, y in s.STRIP]
+    pano = pipeline.composite_global(planted.strip, planted.strip_dev, gs,
+                                     s.blend_config(blend))
+    assert pano.shape[:2] == s.strip_shape()
+    assert s.scene_err(pano, planted.strip, s.STRIP, 0, (0, 0),
+                       s.strip_shape()).max() <= bar

@@ -38,6 +38,12 @@ import json
 import os
 import sys
 
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+# The union of (start, end) intervals, and its length: overlapping events
+# (two streams at once, or nested ones) count once.
+from pano_bench.trace import union as _union  # noqa: E402
+from pano_bench.trace import union_length as _busy_union  # noqa: E402
+
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 SPAN_PREFIX = "pano."
 LAUNCH_NAMES = frozenset((
@@ -69,23 +75,6 @@ def load(path: str) -> dict:
 def _complete(trace: dict, cats) -> list:
     return [e for e in trace.get("traceEvents", [])
             if e.get("ph") == "X" and e.get("cat") in cats and "dur" in e]
-
-
-def _union(spans) -> list:
-    """The union of (start, end) intervals as disjoint sorted intervals."""
-    out: list = []
-    for s, e in sorted(spans):
-        if out and s <= out[-1][1]:
-            out[-1][1] = max(out[-1][1], e)
-        else:
-            out.append([s, e])
-    return out
-
-
-def _busy_union(spans) -> float:
-    """Union length of (start, end) intervals: overlapping events (two
-    streams at once, or nested ones) are counted once."""
-    return sum(e - s for s, e in _union(spans))
 
 
 def _by(events, key) -> dict:
