@@ -26,7 +26,8 @@ non-zero and the last line is not printed.
    keypoints, K3, K4a / K4b / K5 on the planted H and a mild projective
    one (K4b with and without the ramp alpha, K5 overlay and feather), K6
    a step of the strip's chain, K7 on the planted pair's 9x9 normal
-   matrix as the estimate hands it over (also against float64 eigh), K8 /
+   matrix as the estimate hands it over (also against float64 eigh), K10
+   on the planted pair's match points and the default table, K8 /
    K9 at a chain window's size (the whole blend also equal to
    ops/blend.py's route), and the batched K1 (the strip) and K4b (the
    chain's three windows), also equal to their single launches. Each
@@ -82,6 +83,9 @@ KERNELS = {
     # No pallas_call: the refine's jnp.linalg.eigh, which XLA runs on the
     # TPU as Jacobi sweeps.
     "K7": ("smallest_eigvec9", "eigh9.cu", "ransac.py:245"),
+    # No pallas_call: the hypothesis search, which XLA runs on the TPU
+    # (homography_from_4pts under vmap, _score_hypotheses, argmax).
+    "K10": ("ransac_search", "ransac.cu", "ransac.py:251"),
 }
 # The batched entries of K1 and K4b (the TPU kernels' batched grids, under
 # their custom_vmap rules).
@@ -113,6 +117,16 @@ CHAIN_OPS_PER_PX = 27
 #     normaliser 3, 9 divisions, the mask's clamp 3, three bands of 7.
 K8_OPS_PER_PX = 50
 K9_OPS_PER_PX = 9 * 18 + 3 + 9 + 3 + 21
+# K10 per hypothesis, its DLT: the two Hartley similarities 2 x 42, the
+#     four correspondences normalized 64, the system's products 32, the
+#     elimination 8 x (8 magnitudes, 7 divisions, 72 products, 72
+#     differences, 9 pivot-row sums, the pivot's compares) 1344, the
+#     back-substitution 8, the inverse 41, two 3x3 products 90 and the
+#     normalization 9. Per (hypothesis, valid match), its score: w, the two
+#     numerators 3 x 4, two divisions, two differences, the squared
+#     distance 3 and the compare.
+K10_DLT_OPS = 84 + 64 + 32 + 1344 + 8 + 41 + 90 + 9
+K10_SCORE_OPS = 12 + 2 + 2 + 3 + 1
 
 # Device times of other variants of a kernel's timed call, logged beside
 # its device_ms: K4b without the ramp alpha and without the weight, K5 and
@@ -232,6 +246,14 @@ def bound(nbytes: float, nops: float, kind: str = "f32", more=()):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def equal_nan(a, b) -> bool:
+    """torch.equal, with NaN equal to NaN in the same places."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    na, nb = a.isnan(), b.isnan()
+    return bool((na == nb).all() and (a[~na] == b[~nb]).all())
 
 
 def check(cond: bool, what: str) -> None:
@@ -390,9 +412,10 @@ COUNTERS = {"K1": ("cuda_harris", "launches"),
             "K6": ("cuda_compose", "chain_launches"),
             "K7": ("cuda_eigh", "launches"),
             "K8": ("cuda_blend", "reduce_launches"),
-            "K9": ("cuda_blend", "collapse_launches")}
+            "K9": ("cuda_blend", "collapse_launches"),
+            "K10": ("cuda_ransac", "launches")}
 # The overlay pair's launches (stitch_pair_fast, default config).
-PAIR_LAUNCHES = {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K4a": 1}
+PAIR_LAUNCHES = {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K10": 1, "K4a": 1}
 # Phase 5's strip cases: case -> (mode, blend, gain, launches beside the
 # estimates', the bar against the scene).
 STRIP_CASES = {
@@ -402,7 +425,7 @@ STRIP_CASES = {
                         {"K4b": 3, "K8": 12, "K9": 15}, 3),
     "chain_feather_gain": ("chain", "feather", True, {"K4b": 3}, 2),
     "auto": ("auto", "overlay", False, {"K1": 4, "K2": 4, "K3": 6, "K7": 6,
-                                        "K4b": 3, "K6": 3}, 2),
+                                        "K10": 6, "K4b": 3, "K6": 3}, 2),
     "fold_total": ("fold", "overlay", False, {"K4a": 3}, None),
 }
 
@@ -563,7 +586,7 @@ def strip_on_card(strip, strip_dev, case) -> dict:
     finally:
         pipeline.composite_global = composite_global
     lines = re.sub(r": \d+\.\d{3} ms", ": x ms", out.getvalue()).splitlines()
-    check(got == {"K1": 6, "K2": 6, "K3": 3, "K7": 3, **extra},
+    check(got == {"K1": 6, "K2": 6, "K3": 3, "K7": 3, "K10": 3, **extra},
           f"{case}: launches {got}")
     check(isinstance(pano, np.ndarray) and pano.dtype == np.uint8,
           f"{case}: a {type(pano)}")
@@ -637,7 +660,7 @@ def main() -> None:
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.ops import (
         cuda_compose, cuda_eigh, cuda_gather, cuda_harris, cuda_match,
-        cuda_warp, harris, ransac,
+        cuda_ransac, cuda_warp, harris, ransac,
     )
     from pano_tpu_torch.ops import warp as warp_ops
     from pano_tpu_torch.pipeline import fused_canvas_geometry
@@ -927,8 +950,9 @@ def main() -> None:
                                    r_opts.seed, DEVICE)
     cuda_eigh.smallest_eigvec9 = record
     try:
-        PairStitcher(DEFAULT_CONFIG, print_timing=False, device=DEVICE,
-                     sampler=table)._fused_estimate_impl(left, right)
+        _, match_pts = PairStitcher(
+            DEFAULT_CONFIG, print_timing=False, device=DEVICE,
+            sampler=table)._fused_estimate_impl(left, right)
     finally:
         cuda_eigh.smallest_eigvec9 = k7
     ata, = ata_seen
@@ -950,6 +974,32 @@ def main() -> None:
     log("K7 smallest_eigvec9", shape=tuple(ata.shape),
         sweeps=cuda_eigh.SWEEPS, one_minus_cos_vs_f64=align, **res["K7"])
     del ata_seen, got, want
+
+    # K10: the hypothesis search on the planted pair's match points and the
+    # default table, as the estimate hands them over.
+    pq, pt, valid = match_pts
+    idx = table(valid.sum(dtype=torch.int32))
+    thresh = r_opts.distance_threshold
+    got = cuda_ransac.search(pq, pt, valid, idx, thresh)
+    want = cuda_ransac.search_plain(pq, pt, valid, idx, thresh)
+    for name, a, b in zip(("hs", "counts", "best_h", "best_count"), got, want):
+        check(equal_nan(a, b), f"K10 {name} differs from the plain version")
+    n_valid, n_hyp = int(valid.sum()), idx.shape[0]
+    k10 = functools.partial(cuda_ransac.search, pq, pt, valid, idx, thresh)
+    res["K10"] = dict(
+        ms=timer(k10),
+        plain_ms=timer(lambda: cuda_ransac.search_plain(pq, pt, valid, idx,
+                                                        thresh)),
+        library_ms=None,
+        # Points, flags and the table in, the hypotheses and counts out; the
+        # DLTs and the scores of the valid matches.
+        bound=bound(nbytes(pq, pt, valid, idx, *got),
+                    n_hyp * (K10_DLT_OPS + K10_SCORE_OPS * n_valid)),
+    )
+    device_runs.append(("K10", "device_ms", k10, None))
+    log("K10 ransac_search", hypotheses=n_hyp, matches=pq.shape[0],
+        valid=n_valid, best_count=int(got[3]), **res["K10"])
+    del got, want, match_pts
 
     pyramid_rows(torch, timer, res, device_runs)
     batched_rows(torch, timer, res, device_runs, strip, strip_np)

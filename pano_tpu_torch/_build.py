@@ -82,6 +82,9 @@ SIGNATURES = {
     "pano_pyramid_reduce": [_V, _I, _I, _I, _V, _V],
     # fine, coarse (or null), out plane tables (host), H, W, h, w, stream
     "pano_pyramid_collapse": [_V, _V, _V, _I, _I, _I, _I, _V],
+    # src, dst, valid, idx, hs, counts, best_h, best_count, scratch, m, n,
+    # squared threshold, stream
+    "pano_ransac_search": [_V] * 9 + [_I, _I, _F, _V],
 }
 
 _lib = None

@@ -1,15 +1,18 @@
 """RANSAC homography estimation, all hypotheses at once.
 
 Counterpart of ``pano_tpu/ops/ransac.py``: every hypothesis of the JAX
-package's ``vmap`` is a row of a leading batch dimension here. Hartley-
-normalized 4-point DLT by unrolled Gauss-Jordan, one broadcast scoring
-pass over (N, M), argmax, then the degeneracy guard and the masked
-least-squares refine through the smallest eigenvector of a 9x9 normal
-matrix (kernel K7, ``ops/cuda_eigh.py``). Everything is float32; the
-package turns TF32 off, so the small matrix products are true fp32.
-Nothing here reads a device value on the host: constants are made on the
-device, gathers by a device index are ``index_select``, and the refine's
-eigenvector comes from K7, so an estimate is enqueued whole.
+package's ``vmap`` is a row of a leading batch dimension here. The
+search over the hypotheses is one kernel, K10 (``ops/cuda_ransac.py``:
+each hypothesis's Hartley-normalized 4-point DLT, its inlier count over
+all matches, the first maximum; its plain version on the CPU), then the
+degeneracy guard and the masked least-squares refine through the
+smallest eigenvector of a 9x9 normal matrix (kernel K7,
+``ops/cuda_eigh.py``). Everything is float32; the package turns TF32
+off, so the refine's small matrix products are true fp32. Nothing here
+reads a device value on the host: constants are made on the device,
+gathers by a device index are ``index_select``, and the search and the
+refine's eigenvector come from K10 and K7, so an estimate is enqueued
+whole.
 
 Sampling: ``ransac_best_hypothesis`` takes a ``sampler(n_valid) -> (N, 4)
 int64`` table of indices into the compacted valid range. The default is
@@ -27,8 +30,8 @@ search, then ``finalize_ransac``). On a CUDA device with the default table
 (``sampler=None``) every shape in it is fixed by the configuration, so it
 is captured once per (device, stream, input shapes and dtypes, options)
 as a CUDA graph and replayed: the inputs are copied into the graph's own
-buffers, one graph launch runs the ~480 kernels the host would otherwise
-enqueue one by one, and the outputs come back as copies. The same kernels
+buffers, one graph launch runs the ~190 kernels and memsets the host
+would otherwise enqueue one by one, and the outputs come back as copies. The same kernels
 run on the same inputs in the same order, so the result is the eager
 one's bit for bit. Anything else (the CPU, an injected table, the
 hypothesis-sharded search, which calls the two halves itself) runs
@@ -45,7 +48,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from pano_tpu_torch.config import RansacOptions
-from pano_tpu_torch.ops import cuda_eigh
+from pano_tpu_torch.ops import cuda_eigh, cuda_ransac
+from pano_tpu_torch.ops.cuda_ransac import inv3x3
 from pano_tpu_torch.timer import span
 
 Sampler = Callable[[torch.Tensor], torch.Tensor]
@@ -89,83 +93,9 @@ def _sqrt2(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.full((), 2.0, dtype=dtype, device=device).sqrt()
 
 
-def inv3x3(m: torch.Tensor) -> torch.Tensor:
-    """Closed-form 3x3 inverse (adjugate / determinant), batched."""
-    a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
-    d, e, f = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
-    g, h, i = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
-    co00 = e * i - f * h
-    co01 = c * h - b * i
-    co02 = b * f - c * e
-    co10 = f * g - d * i
-    co11 = a * i - c * g
-    co12 = c * d - a * f
-    co20 = d * h - e * g
-    co21 = b * g - a * h
-    co22 = a * e - b * d
-    det = a * co00 + b * co10 + c * co20
-    adj = torch.stack(
-        [
-            torch.stack([co00, co01, co02], -1),
-            torch.stack([co10, co11, co12], -1),
-            torch.stack([co20, co21, co22], -1),
-        ],
-        -2,
-    )
-    return adj / det[..., None, None]
-
-
-def _solve8(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Batched 8x8 solve, a (..., 8, 8), b (..., 8), by unrolled
-    Gauss-Jordan with partial pivoting. Singular systems give inf/nan."""
-    m = torch.cat([a, b[..., None]], dim=-1)               # (..., 8, 9)
-    rows = torch.arange(8, device=a.device)
-    for col in range(8):
-        mag = torch.where(rows >= col, m[..., :, col].abs(), float("-inf"))
-        piv = torch.argmax(mag, dim=-1)                    # (...,)
-        is_piv = (rows == piv[..., None])[..., None]       # (..., 8, 1)
-        row_c = m[..., col, :]
-        row_p = torch.where(is_piv, m, torch.zeros_like(m)).sum(-2)
-        m = torch.where(
-            (rows == col)[:, None],
-            row_p[..., None, :],
-            torch.where(is_piv, row_c[..., None, :], m),
-        )
-        factor = m[..., :, col] / m[..., col, col][..., None]
-        factor = torch.where(rows == col, torch.zeros_like(factor), factor)
-        m = m - factor[..., None] * m[..., col, :][..., None, :]
-    return m[..., :, 8] / torch.diagonal(m[..., :, :8], dim1=-2, dim2=-1)
-
-
 def _apply_similarity(t: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     """pts @ t[:2, :2].T + t[:2, 2], batched."""
     return pts @ t[..., :2, :2].transpose(-1, -2) + t[..., None, :2, 2]
-
-
-def homography_from_4pts(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
-    """Exact homographies from 4 correspondences, src/dst (..., 4, 2)."""
-    ones4 = torch.ones(src.shape[:-1], dtype=torch.bool, device=src.device)
-    t_src = _normalization_transform(src, ones4)
-    t_dst = _normalization_transform(dst, ones4)
-    sn = _apply_similarity(t_src, src)
-    dn = _apply_similarity(t_dst, dst)
-    x, y = sn[..., 0], sn[..., 1]
-    u, v = dn[..., 0], dn[..., 1]
-    zeros = torch.zeros_like(x)
-    ones = torch.ones_like(x)
-    rows_u = torch.stack(
-        [x, y, ones, zeros, zeros, zeros, -u * x, -u * y], -1
-    )
-    rows_v = torch.stack(
-        [zeros, zeros, zeros, x, y, ones, -v * x, -v * y], -1
-    )
-    a = torch.cat([rows_u, rows_v], dim=-2)                # (..., 8, 8)
-    b = torch.cat([u, v], dim=-1)                          # (..., 8)
-    h8 = _solve8(a, b)
-    h = torch.cat([h8, torch.ones_like(h8[..., :1])], -1)
-    h = h.reshape(h8.shape[:-1] + (3, 3))
-    h_full = inv3x3(t_dst) @ h @ t_src
-    return h_full / h_full[..., 2:3, 2:3]
 
 
 def project_points(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
@@ -174,19 +104,6 @@ def project_points(h: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
     px = (h[0, 0] * pts[:, 0] + h[0, 1] * pts[:, 1] + h[0, 2]) / w
     py = (h[1, 0] * pts[:, 0] + h[1, 1] * pts[:, 1] + h[1, 2]) / w
     return torch.stack([px, py], -1)
-
-
-def _score_hypotheses(hs, src, dst, valid, thresh: float) -> torch.Tensor:
-    """Inlier count per hypothesis in one broadcast pass -> (N,) int32."""
-    x, y = src[:, 0], src[:, 1]
-    w = hs[:, 2, 0, None] * x + hs[:, 2, 1, None] * y + hs[:, 2, 2, None]
-    px = (hs[:, 0, 0, None] * x + hs[:, 0, 1, None] * y
-          + hs[:, 0, 2, None]) / w
-    py = (hs[:, 1, 0, None] * x + hs[:, 1, 1, None] * y
-          + hs[:, 1, 2, None]) / w
-    d2 = (px - dst[None, :, 0]) ** 2 + (py - dst[None, :, 1]) ** 2
-    is_in = (d2 < thresh * thresh) & valid[None, :]  # NaN compares False
-    return is_in.sum(dim=1, dtype=torch.int32)
 
 
 def _inlier_mask(h, src, dst, valid, thresh: float) -> torch.Tensor:
@@ -337,7 +254,9 @@ def ransac_best_hypothesis(
     distance_threshold: float,
     sampler: Sampler,
 ):
-    """Score `num_iterations` hypotheses; return (best_H (3,3), count ())."""
+    """Score `num_iterations` hypotheses; return (best_H (3,3), count ()):
+    the sampler's table, then K10 (``cuda_ransac.search``: the DLTs, the
+    scores and the first maximum)."""
     with span("ransac.search"):
         n_valid = valid.sum(dtype=torch.int32)
         idx = sampler(n_valid).to(device=pts_src.device, dtype=torch.int64)
@@ -346,15 +265,9 @@ def ransac_best_hypothesis(
                 f"sampler returned {tuple(idx.shape)}, want "
                 f"{(num_iterations, num_samples)}"
             )
-        flat = idx.reshape(-1)
-        hs = homography_from_4pts(
-            pts_src.index_select(0, flat).reshape(idx.shape + (2,)),
-            pts_dst.index_select(0, flat).reshape(idx.shape + (2,)),
-        )                                                   # (N, 3, 3)
-        counts = _score_hypotheses(hs, pts_src, pts_dst, valid,
-                                   distance_threshold)
-        best = torch.argmax(counts)
-        return take(hs, best), take(counts, best)
+        _, _, best_h, best_count = cuda_ransac.search(
+            pts_src, pts_dst, valid, idx, distance_threshold)
+        return best_h, best_count
 
 
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -439,9 +352,15 @@ graph_captures = 0
 graph_replays = 0
 
 # Graphs kept, the least recently used dropped first. Each holds a private
-# memory pool with the estimate's temporaries (the (N, M) scoring planes:
-# 230 MiB reserved at K = 8192 and 1000 hypotheses on an H100).
+# memory pool with the estimate's temporaries: the search's table and
+# K10's outputs, the finalize's (M,) and (2M, 9) planes (the (N, M)
+# scoring planes of the search in plain torch reserved 230 MiB at K =
+# 8192 and 1000 hypotheses on an H100).
 GRAPH_CACHE_SIZE = 4
+
+# The hand-written kernels an estimate launches, whose launch counters a
+# replay advances by the launches its graph holds: K7 and K10.
+_COUNTED = (cuda_eigh, cuda_ransac)
 
 _graphs: "collections.OrderedDict[tuple, _GraphedEstimate]" = \
     collections.OrderedDict()
@@ -477,8 +396,8 @@ class _GraphedEstimate:
         self.graph = torch.cuda.CUDAGraph()
 
     def capture(self) -> RansacResult:
-        """Warm up (cuBLAS on the side stream, K7's library, the tables)
-        and capture, both on the side stream; returns the warm-up's
+        """Warm up (cuBLAS on the side stream, the kernels' library, the
+        tables) and capture, both on the side stream; returns the warm-up's
         result, which is the first call's."""
         global graph_captures
         device = self.inputs[0].device
@@ -489,13 +408,16 @@ class _GraphedEstimate:
             first = _estimate(*self.inputs, self.opts)
         for t in first:
             t.record_stream(stream)
-        before = cuda_eigh.launches
+        before = [mod.launches for mod in _COUNTED]
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="thread_local"):
             self.outputs = _estimate(*self.inputs, self.opts)
-        # A capture runs nothing; each replay runs the K7 launches it holds.
-        self.k7_launches = cuda_eigh.launches - before
-        cuda_eigh.launches = before
+        # A capture runs nothing; each replay runs the kernel launches it
+        # holds.
+        self.held_launches = [mod.launches - n
+                              for mod, n in zip(_COUNTED, before)]
+        for mod, n in zip(_COUNTED, before):
+            mod.launches = n
         stream.wait_stream(side)
         graph_captures += 1
         return first
@@ -509,7 +431,8 @@ class _GraphedEstimate:
             buf.copy_(t)
         with span("ransac.replay"):
             self.graph.replay()
-        cuda_eigh.launches += self.k7_launches
+        for mod, n in zip(_COUNTED, self.held_launches):
+            mod.launches += n
         graph_replays += 1
         return RansacResult(*(t.clone() for t in self.outputs))
 

@@ -841,13 +841,14 @@ _STAGE_LABELS = ("Harris Corner Detection", "Harris Corner Detection",
 _CLI_CASES = {
     "fold_feather": ("gpu", 2, ["--mode", "fold", "--blend", "feather"],
                      ["Image Stitching (GPU)"],
-                     {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K4b": 1, "K5": 1}),
+                     {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K10": 1, "K4b": 1,
+                      "K5": 1}),
     "stages": ("gpu", 2, ["--timing", "stages"],
                [f"{s} (GPU)" for s in _STAGE_LABELS],
-               {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K4a": 1}),
+               {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K10": 1, "K4a": 1}),
     "sharded_chain": ("sharded", 4, ["--mode", "chain"], [],
-                      {"K1b": 1, "K2": 6, "K3": 3, "K7": 3, "K4bb": 1,
-                       "K6": 3}),
+                      {"K1b": 1, "K2": 6, "K3": 3, "K7": 3, "K10": 3,
+                       "K4bb": 1, "K6": 3}),
 }
 # The sharded chain on the planted 4156x3117 strip's files.
 _CLI_CASES["sharded_chain_planted"] = _CLI_CASES["sharded_chain"]
@@ -1177,7 +1178,7 @@ def test_sharded_modes_on_the_card_equal_one_device(case, request,
         assert launches["K4bb"] == n_data
         return
     assert launches == {"K1": 2 * (n - 1), "K2": 2 * (n - 1), "K3": n - 1,
-                        "K7": n - 1, "K4a": n - 1}
+                        "K7": n - 1, "K10": (n - 1) * n_hyp, "K4a": n - 1}
     assert re.sub(r": \d+\.\d{3} ms", ": x ms",
                   out.getvalue()).splitlines() == [
         *(x for i in range(2, n + 1) for x in (
@@ -1196,8 +1197,8 @@ def test_stitch_pairs_batched_on_the_card(size, request):
     or the planted strip's three pairs and the planted pair (4156x3117):
     each estimate row torch.equal to the pair stitcher's, each canvas
     PairStitcher.composite's of that row's H, through one batched K1
-    launch, K2 x8, K3 x4, K7 x4, K5 x4 and a batched K4b launch for each
-    group of equal canvases (1-4)."""
+    launch, K2 x8, K3 x4, K7 x4, K10 x4, K5 x4 and a batched K4b launch
+    for each group of equal canvases (1-4)."""
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher
     from pano_tpu_torch.parallel import shard
 
@@ -1218,7 +1219,8 @@ def test_stitch_pairs_batched_on_the_card(size, request):
     panos, launches = _smoke().launches(lambda: shard.stitch_pairs_batched(
         lefts, rights, DEFAULT_CONFIG))
     groups = launches.pop("K4bb")
-    assert launches == {"K1b": 1, "K2": 8, "K3": 4, "K7": 4, "K5": 4}
+    assert launches == {"K1b": 1, "K2": 8, "K3": 4, "K7": 4, "K10": 4,
+                        "K5": 4}
     assert 1 <= groups <= 4
     for k, row in enumerate(singles):
         h = row[:9].cpu().numpy().astype(np.float64).reshape(3, 3)
@@ -1438,7 +1440,7 @@ def test_graft_entry_on_the_card():
     fn, args = ge.entry()
     assert all(a.device.type == "cuda" for a in args)
     (h, count, canvas), launches = _smoke().launches(lambda: fn(*args))
-    assert launches == {"K1": 2, "K2": 2, "K3": 1, "K7": 1}
+    assert launches == {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K10": 1}
     fn_c, args_c = ge.entry("cpu")
     h_c, count_c, canvas_c = fn_c(*args_c)
     c = np.array([[0, 0, 1], [160, 0, 1], [160, 128, 1], [0, 128, 1]], float)
@@ -1912,6 +1914,155 @@ def test_dispatch_in_flight_equals_the_eager_estimate():
         pano = st.retire(p)
         assert torch.equal(pano, want_pano)
         np.testing.assert_array_equal(st.last_estimate, want_row)
+
+
+# --- K10: RANSAC's hypothesis search (ops/cuda_ransac.py, csrc/ransac.cu) --
+
+_SEARCH_CASES = ("planted", "strip01", "strip12", "strip23", "n_valid0",
+                 "n_valid3", "n_valid4", "n_valid5", "shard250", "n37",
+                 "ties", "pivot_ties")
+
+
+@pytest.fixture(scope="module")
+def search_inputs():
+    """case -> (pts_src, pts_dst, valid, idx) on the card: the planted
+    pair's and the strip's three pairs' match points with the default
+    table; the planted points with n_valid cut to 0, 3, 4 and 5
+    (degenerate and NaN hypotheses, all-zero counts); a shard's table of
+    250 (key_sampler of fold_in(seed, 1)) and 37 hypotheses (not a
+    multiple of the tile); exact integer translations, where most
+    hypotheses tie at the top count, behind five degenerate rows; and the
+    corners of a rectangle, whose normalized coordinates tie in the
+    pivot's magnitude."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import ransac
+
+    r = DEFAULT_CONFIG.ransac
+    table = _default_table(r)
+    pts = _planted_and_strip_points()
+    cases = {name: (*p, table(p[2].sum(dtype=torch.int32)))
+             for name, p in zip(_SEARCH_CASES[:4], pts)}
+    pq, pt, v = pts[0]
+    for nv in (0, 3, 4, 5):
+        cut = torch.arange(v.shape[0], device="cuda") < nv
+        cases[f"n_valid{nv}"] = (pq, pt, cut,
+                                 table(cut.sum(dtype=torch.int32)))
+    n_valid = v.sum(dtype=torch.int32)
+    key = ransac.fold_in(ransac.prng_key(r.seed), 1)
+    cases["shard250"] = (pq, pt, v, ransac.key_sampler(
+        key, 250, 4, "cuda")(n_valid))
+    cases["n37"] = (pq, pt, v, ransac.key_sampler(key, 37, 4, "cuda")(
+        n_valid))
+    g = np.random.default_rng(5)
+    src = torch.from_numpy(g.integers(0, 3000, (8192, 2)).astype(np.float32))
+    idx = torch.from_numpy(g.integers(0, 8192, (1000, 4)))
+    idx[:5] = 17
+    cases["ties"] = (src.cuda(), (src + torch.tensor([1400.0, 37.0])).cuda(),
+                     torch.ones(8192, dtype=torch.bool, device="cuda"),
+                     idx.cuda())
+    rect = torch.tensor([[10.0, 10.0], [50.0, 10.0], [50.0, 30.0],
+                         [10.0, 30.0]], device="cuda")
+    cases["pivot_ties"] = (rect, rect * 1.5 + 3.0,
+                           torch.ones(4, dtype=torch.bool, device="cuda"),
+                           torch.tensor([[0, 1, 2, 3], [3, 2, 1, 0],
+                                         [0, 2, 1, 3]], device="cuda"))
+    return cases
+
+
+@pytest.mark.parametrize("case", _SEARCH_CASES)
+def test_ransac_search_kernel_vs_plain(search_inputs, case):
+    """K10 equal to its plain version in every output (hs row by row,
+    NaN rows NaN in both; counts; the winner and its count), one launch,
+    and the winner the first hypothesis at the top count."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import cuda_ransac
+
+    pq, pt, v, idx = search_inputs[case]
+    thresh = DEFAULT_CONFIG.ransac.distance_threshold
+    before = cuda_ransac.launches
+    got = cuda_ransac.search(pq, pt, v, idx, thresh)
+    assert cuda_ransac.launches == before + 1
+    want = cuda_ransac.search_plain(pq, pt, v, idx, thresh)
+    for name, a, b in zip(("hs", "counts", "best_h", "best_count"), got, want):
+        assert a.device == b.device and _smoke().equal_nan(a, b), name
+    hs, counts, best_h, best_count = got
+    first = int((counts == counts.max()).nonzero()[0])
+    assert int(best_count) == int(counts.max())
+    assert _smoke().equal_nan(best_h, hs[first])
+    if case in ("n_valid0", "n_valid3"):
+        assert bool(torch.isnan(hs).all()) and int(counts.max()) == 0
+    if case == "ties":
+        assert first >= 5 and int((counts == counts.max()).sum()) > 900
+        assert bool(torch.isnan(hs[:5]).all()) and int(counts[:5].max()) == 0
+
+
+def test_ransac_search_refuses_misaligned_points():
+    """The kernel reads a point as one 8-byte word: points at an odd
+    float offset raise before any launch."""
+    from pano_tpu_torch.ops import cuda_ransac
+
+    flat = torch.zeros(2 * 64 + 1, device="cuda")
+    pts = flat[1:].view(64, 2)
+    valid = torch.ones(64, dtype=torch.bool, device="cuda")
+    idx = torch.zeros((8, 4), dtype=torch.int64, device="cuda")
+    before = cuda_ransac.launches
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_ransac.search(pts, pts, valid, idx, 3.0)
+    assert cuda_ransac.launches == before
+
+
+def test_ransac_search_graph_replays_do_not_carry_the_winner(search_inputs):
+    """K10 captured alone in a CUDA graph and replayed on three inputs in
+    turn (the planted points; the same with half the matches valid, so
+    every count is lower; the planted points again): each replay equal to
+    the eager search. A first-maximum slot left over from a replay would
+    hand the second its predecessor's winner."""
+    from pano_tpu_torch import DEFAULT_CONFIG
+    from pano_tpu_torch.ops import cuda_ransac
+
+    thresh = DEFAULT_CONFIG.ransac.distance_threshold
+    pq, pt, v, idx = search_inputs["planted"]
+    half = v & (torch.arange(v.shape[0], device="cuda") < int(v.sum()) // 2)
+    static = [t.clone() for t in (pq, pt, v, idx)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        cuda_ransac.search(*static, thresh)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = cuda_ransac.search(*static, thresh)
+    counts = []
+    for inputs in ((pq, pt, v, idx), (pq, pt, half, idx), (pq, pt, v, idx)):
+        for buf, t in zip(static, inputs):
+            buf.copy_(t)
+        graph.replay()
+        want = cuda_ransac.search(*inputs, thresh)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("hs", "counts", "best_h", "best_count"),
+                              out, want):
+            assert _smoke().equal_nan(a, b), name
+        counts.append(int(out[3]))
+    assert counts[1] < counts[0] == counts[2]
+
+
+def test_ransac_search_launches_per_estimate():
+    """One K10 launch for each estimate: the eager one with an injected
+    table, the graphed one's capture and each replay; ransac.launches is
+    the profiler's and stays one graph launch."""
+    from pano_tpu_torch.config import RansacOptions
+    from pano_tpu_torch.ops import cuda_ransac, ransac
+
+    pts = _planted_and_strip_points()[0]
+    opts = RansacOptions(seed=2024)     # a key of its own: captured here
+    table = _default_table(opts)
+    for fn in (lambda: ransac._estimate(*pts, opts, table),
+               lambda: ransac.ransac_homography(*pts, opts),
+               lambda: ransac.ransac_homography(*pts, opts)):
+        before = cuda_ransac.launches
+        fn()
+        torch.cuda.synchronize()
+        assert cuda_ransac.launches == before + 1
 
 
 # --- multiband's pyramid kernels (ops/cuda_blend.py, csrc/pyramid.cu) -------

@@ -13,6 +13,7 @@ import jax.numpy as jnp  # noqa: E402
 from pano_tpu.config import RansacOptions as JaxRansacOptions  # noqa: E402
 from pano_tpu.ops import ransac as JR  # noqa: E402
 from pano_tpu_torch.config import RansacOptions  # noqa: E402
+from pano_tpu_torch.ops import cuda_ransac as CR  # noqa: E402
 from pano_tpu_torch.ops import ransac as TR  # noqa: E402
 
 
@@ -35,7 +36,7 @@ def test_solve8_matches_jax():
     a += 4.0 * np.eye(8, dtype=np.float32)
     b = rng.standard_normal((64, 8)).astype(np.float32)
     want = np.asarray(jax.vmap(JR._solve8)(jnp.asarray(a), jnp.asarray(b)))
-    got = TR._solve8(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    got = CR._solve8(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(
         got, np.linalg.solve(a.astype(np.float64), b[..., None])[..., 0],
@@ -49,7 +50,7 @@ def test_inv3x3_matches_jax():
     m = rng.standard_normal((100, 3, 3)).astype(np.float32)
     m += 3.0 * np.eye(3, dtype=np.float32)
     want = np.asarray(JR.inv3x3(jnp.asarray(m)))
-    got = TR.inv3x3(torch.from_numpy(m)).numpy()
+    got = CR.inv3x3(torch.from_numpy(m)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
 
 
@@ -137,6 +138,118 @@ def test_best_hypothesis_matches_jax():
     assert int(ct) == int(cj)
     np.testing.assert_allclose(ht.numpy(), np.asarray(hj), rtol=1e-4,
                                atol=1e-7)
+
+
+def test_homography_from_4pts_matches_jax():
+    """The fixed-order DLT (every sum and 3x3 product written out, as K10
+    repeats it) against the JAX package's vmapped one on random samples of
+    the correspondences: the same degenerate samples, and each H sends the
+    data's corners within 0.01 px of where JAX's does (a random sample's
+    system can be ill-conditioned, so entries differ by more than the
+    estimate's rel 1e-4)."""
+    rng = np.random.default_rng(41)
+    src, dst, _, _ = _correspondences(rng, m=400, n_valid=400, outliers=0)
+    idx = rng.integers(0, 400, (256, 4))
+    idx[:3] = 9                                     # degenerate samples
+    s4, d4 = src[idx], dst[idx]
+    want = np.asarray(jax.vmap(JR.homography_from_4pts)(jnp.asarray(s4),
+                                                        jnp.asarray(d4)))
+    got = CR.homography_from_4pts(torch.from_numpy(s4),
+                                  torch.from_numpy(d4)).numpy()
+    ok = np.isfinite(want).all((1, 2))
+    assert not ok[:3].any() and ok.sum() > 250 * 0.9
+    np.testing.assert_array_equal(np.isfinite(got).all((1, 2)), ok)
+    corners = np.array([[0, 0, 1], [400, 0, 1], [400, 400, 1], [0, 400, 1]],
+                       np.float64)
+    pa = corners @ got[ok].astype(np.float64).transpose(0, 2, 1)
+    pb = corners @ want[ok].astype(np.float64).transpose(0, 2, 1)
+    err = np.abs(pa[..., :2] / pa[..., 2:] - pb[..., :2] / pb[..., 2:])
+    assert err.max() < 0.01
+
+
+def test_search_first_maximum_wins_ties():
+    """Exact integer translations: most hypotheses tie at the top count.
+    The search returns the first of them, H and count, and its counts are
+    the JAX package's hypothesis for hypothesis, so its winner is JAX's
+    (argmax's first maximum on both sides)."""
+    rng = np.random.default_rng(42)
+    src = rng.integers(0, 400, (300, 2)).astype(np.float32)
+    dst = src + np.float32([37.0, -5.0])
+    valid = np.ones(300, bool)
+    idx = jax_sampler(3, 200)(torch.tensor(300))
+    hs, counts, best_h, best_count = CR.search(
+        torch.from_numpy(src), torch.from_numpy(dst), torch.from_numpy(valid),
+        idx, 3.0)
+    top = counts == counts.max()
+    first = int(top.nonzero()[0])
+    assert int(top.sum()) > 100
+    assert int(best_count) == int(counts.max()) == 300
+    assert torch.equal(best_h, hs[first])
+    hj = jax.vmap(JR.homography_from_4pts)(jnp.asarray(src[idx.numpy()]),
+                                           jnp.asarray(dst[idx.numpy()]))
+    cj = JR._score_hypotheses(hj, jnp.asarray(src), jnp.asarray(dst),
+                              jnp.asarray(valid), 3.0)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(cj))
+    bh, bc = JR.ransac_best_hypothesis(
+        jax.random.PRNGKey(3), jnp.asarray(src), jnp.asarray(dst),
+        jnp.asarray(valid), 200, 4, 3.0)
+    assert int(bc) == int(best_count)
+    np.testing.assert_allclose(best_h.numpy(), np.asarray(bh), rtol=1e-4,
+                               atol=1e-6)
+
+
+def test_search_nan_hypotheses_score_zero():
+    """A sample of one point repeated, or of two, is degenerate: its H is
+    NaN throughout and it scores 0 (NaN compares False), as in the JAX
+    package. With only such samples every count is 0, the first (index
+    0) wins, and the finalize's guard returns the identity."""
+    rng = np.random.default_rng(43)
+    src, dst, valid, _ = _correspondences(rng, m=60, n_valid=50, outliers=5)
+    pts = [torch.from_numpy(x) for x in (src, dst, valid)]
+    idx = torch.tensor([[3, 3, 3, 3], [0, 1, 0, 1], [7, 8, 9, 10],
+                        [4, 4, 5, 5]])
+    hs, counts, best_h, best_count = CR.search(*pts, idx, 3.0)
+    nan = torch.isnan(hs).flatten(1).all(-1)
+    assert nan.tolist() == [True, True, False, True]
+    assert counts.tolist()[:2] == [0, 0] and counts[3] == 0 and counts[2] > 30
+    hj = jax.vmap(JR.homography_from_4pts)(jnp.asarray(src[idx.numpy()]),
+                                           jnp.asarray(dst[idx.numpy()]))
+    assert np.isnan(np.asarray(hj)[[0, 1, 3]]).all()
+    np.testing.assert_array_equal(
+        counts.numpy(), np.asarray(JR._score_hypotheses(
+            hj, jnp.asarray(src), jnp.asarray(dst), jnp.asarray(valid), 3.0)))
+    degenerate = idx[[0, 1, 3]]
+    hs, counts, best_h, best_count = CR.search(*pts, degenerate, 3.0)
+    assert counts.tolist() == [0, 0, 0] and int(best_count) == 0
+    assert bool(torch.isnan(best_h).all())
+    res = TR.finalize_ransac(best_h, best_count, *pts,
+                             RansacOptions(refine=False))
+    assert torch.equal(res.H, torch.eye(3)) and not bool(res.ok)
+
+
+@pytest.mark.parametrize("bad", ["src_dtype", "valid_dtype", "idx_dtype",
+                                 "idx_shape", "no_hypotheses", "device"])
+def test_search_refuses_what_the_kernel_does_not_take(bad):
+    """The wrapper checks types, shapes and the device before any
+    launch."""
+    src = torch.zeros((10, 2))
+    dst = torch.zeros((10, 2))
+    valid = torch.ones(10, dtype=torch.bool)
+    idx = torch.zeros((5, 4), dtype=torch.int64)
+    if bad == "src_dtype":
+        src = src.double()
+    elif bad == "valid_dtype":
+        valid = valid.int()
+    elif bad == "idx_dtype":
+        idx = idx.int()
+    elif bad == "idx_shape":
+        idx = idx[:, :3]
+    elif bad == "no_hypotheses":
+        idx = idx[:0]
+    else:
+        src, dst, valid, idx = (t.to("meta") for t in (src, dst, valid, idx))
+    with pytest.raises(ValueError):
+        CR.search(src, dst, valid, idx, 3.0)
 
 
 @pytest.mark.parametrize("n_valid,outliers", [(3, 0), (8, 8)])
