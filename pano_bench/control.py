@@ -45,9 +45,7 @@ def control_run(spec: Spec, cell: dict, seed: int, device,
     overrides = overrides or {}
     cfg = merged(spec.config(cell["config"]), overrides.get("config"))
     traffic = merged(spec.traffic(cell["traffic"]), overrides.get("traffic"))
-    pool = scenes.make_pool(traffic["scenes"], cfg["image_h"],
-                            cfg["image_w"], seed, device,
-                            traffic["resident"])
+    pool = spec.pool(traffic, cfg, seed, device)
     judged = reference.judge(control_answers(pool), pool,
                              spec.limits(cell["config"]))
     return {"seed": seed,

@@ -1,0 +1,7 @@
+"""``panoramas_per_s`` of the untraced window that the traced run makes
+first (``run.run_cell``), reported per layer in the cells whose rate
+spreads too widely on the host's clock for an end-to-end bound."""
+
+
+def read(t):
+    return t.timed.get("panoramas_per_s")

@@ -2,16 +2,17 @@
 
 The reference imports nothing of the program and takes nothing it made:
 from a scene's images and their planted homographies it draws the
-panorama that the stitch's semantics demand. The canvas is the ceiling
-of the union of the warped image rectangles in image 0's frame (the
-union, and so the canvas, is the same in any image's frame); each image
-is warped onto it through the inverse of its homography with bilinear
-sampling, the anchor (image 0 unless the answer names another) first
+panorama that the stitch's semantics demand, in the frame of the image
+the entry framed it in, the anchor (image 0 unless the answer names
+another; ``in_frame``). The canvas is the ceiling of the union of the
+warped image rectangles (``canvas_frame``, which the harness's sample
+storage and work counts take too); each image is warped onto it through
+the inverse of its homography with bilinear sampling, the anchor first
 and the others in order over it, a black sample letting the canvas show
-through (the reference's overlay). Every image is a crop of one scene,
-so any blend of the pixels that overlap is that scene's pixel: the same
-drawing is the reference of overlay, feather and multiband alike, and
-where they depart from it near a seam is what the pixel limit allows.
+through (the reference's overlay). Every image shows one scene, so any
+blend of the pixels that overlap is that scene's pixel: the same drawing
+is the reference of overlay, feather and multiband alike, and where they
+depart from it near a seam is what the pixel limit allows.
 
 ``dtype`` is the precision of the geometry and the sampling: float32,
 the configuration's, for the reference; bfloat16, the next below, for
@@ -21,21 +22,23 @@ Numbers compared, each against its limit from ``limits/<config>.json``:
 
 * ``h_err_px``: over every panorama of the window, the largest distance
   (px) by which a corner of a placed image lands away from its planted
-  place, through the homography that the panorama was placed with;
+  place in image 0's frame, through the homography that the panorama
+  was placed with;
 * ``canvas_px``: over the sampled panoramas, the largest difference of
   the canvas's height or width from the reference's;
 * ``pixel_max_d``: over the sampled panoramas, the largest difference of
   a channel from the reference's, over their common extent, outside a
-  band of 2 px across the edge of each placed image but the anchor (an
-  estimate a thousandth of a pixel off samples a sliver of the black
-  outside there; the anchor is copied, not sampled);
+  band of 2 px across each edge of each placed image but the anchor
+  (``edge_band``: an estimate a thousandth of a pixel off samples a
+  sliver of the black outside there; the anchor is copied, not
+  sampled);
 * ``missing``: panoramas that came back empty (None).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -72,28 +75,64 @@ def _to_dtype(m: np.ndarray, dtype, device) -> torch.Tensor:
                                                         dtype=dtype)
 
 
+def shapes(images) -> List[Tuple[int, int]]:
+    """(h, w) of each image (tensors or numpy)."""
+    return [_hw(img) for img in images]
+
+
+def in_frame(globals_h: Sequence[np.ndarray], anchor: int
+             ) -> List[np.ndarray]:
+    """Homographies into image 0's frame as homographies into image
+    `anchor`'s: ``inv(g_anchor) @ g_i`` (those given where `anchor` is
+    0)."""
+    if anchor == 0:
+        return list(globals_h)
+    back = np.linalg.inv(np.asarray(globals_h[anchor], np.float64))
+    return [back @ np.asarray(g, np.float64) for g in globals_h]
+
+
+def canvas_frame(image_shapes: Sequence[Tuple[int, int]],
+                 globals_h: Sequence[np.ndarray], dtype=torch.float32,
+                 device="cpu"):
+    """(corners, lo, (canvas_h, canvas_w)) of the panorama of images of
+    `image_shapes` placed by `globals_h`, computed in `dtype` on
+    `device`: each image's corners (0, 0), (w, 0), (w, h), (0, h) mapped
+    by its homography ((4, 2) tensors), the union's top-left corner `lo`
+    (never right of or below the frame's origin), and the canvas, the
+    ceiling of the union's extent."""
+    corners = []
+    for (h, w), g in zip(image_shapes, globals_h):
+        c = _to_dtype([[0, 0, 1], [w, 0, 1], [w, h, 1], [0, h, 1]], dtype,
+                      device)
+        p = c @ _to_dtype(g, dtype, device).T
+        corners.append(p[:, :2] / p[:, 2:3])
+    allc = torch.cat(corners)
+    lo = torch.minimum(allc.min(0).values, torch.zeros((), dtype=dtype,
+                                                       device=device))
+    size = torch.ceil(allc.max(0).values - lo)
+    return corners, lo, (int(size[1].float()), int(size[0].float()))
+
+
+def canvas(image_shapes: Sequence[Tuple[int, int]],
+           globals_h: Sequence[np.ndarray]) -> Tuple[int, int]:
+    """(canvas_h, canvas_w) of the panorama of images of `image_shapes`
+    placed by `globals_h`, as the reference draws it in float32."""
+    return canvas_frame(image_shapes, globals_h)[2]
+
+
 def panorama(images: Sequence[torch.Tensor], globals_h: Sequence[np.ndarray],
              dtype=torch.float32, anchor: int = 0) -> torch.Tensor:
     """The (canvas_h, canvas_w, 3) uint8 reference panorama of `images`
     (tensors on one device) placed by `globals_h` into image 0's frame,
-    its geometry and sampling computed in `dtype`: image `anchor` drawn
-    first, the others in order over it."""
+    drawn in image `anchor`'s frame with its geometry and sampling
+    computed in `dtype`: image `anchor` first, the others in order over
+    it."""
     dev = images[0].device
-    corners = []
-    for img, g in zip(images, globals_h):
-        h, w = img.shape[:2]
-        c = _to_dtype([[0, 0, 1], [w, 0, 1], [w, h, 1], [0, h, 1]], dtype,
-                      dev)
-        p = c @ _to_dtype(g, dtype, dev).T
-        corners.append(p[:, :2] / p[:, 2:3])
-    allc = torch.cat(corners)
-    lo = torch.minimum(allc.min(0).values, torch.zeros((), dtype=dtype,
-                                                       device=dev))
-    hi = allc.max(0).values
-    size = torch.ceil(hi - lo)
-    canvas_w, canvas_h = int(size[0].float()), int(size[1].float())
-    canvas = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
-                         device=dev)
+    globals_h = in_frame(globals_h, anchor)
+    corners, lo, (canvas_h, canvas_w) = canvas_frame(
+        shapes(images), globals_h, dtype, dev)
+    canvas_img = torch.zeros((canvas_h, canvas_w, 3), dtype=torch.uint8,
+                             device=dev)
     shift = np.array([[1.0, 0.0, -float(lo[0].float())],
                       [0.0, 1.0, -float(lo[1].float())], [0.0, 0.0, 1.0]])
     order = [anchor] + [i for i in range(len(images)) if i != anchor]
@@ -108,8 +147,8 @@ def panorama(images: Sequence[torch.Tensor], globals_h: Sequence[np.ndarray],
         y1 = min(int(math.ceil(float(cw[:, 1].max().float()))), canvas_h)
         if x1 <= x0 or y1 <= y0:
             continue
-        _warp_over(canvas, img, m_inv, x0, y0, x1, y1, dtype)
-    return canvas
+        _warp_over(canvas_img, img, m_inv, x0, y0, x1, y1, dtype)
+    return canvas_img
 
 
 def _warp_over(canvas, img, m_inv, x0, y0, x1, y1, dtype) -> None:
@@ -142,27 +181,62 @@ def _warp_over(canvas, img, m_inv, x0, y0, x1, y1, dtype) -> None:
 
 
 def edge_band(shape, images, globals_h, anchor: int = 0) -> torch.Tensor:
-    """(canvas_h, canvas_w) bool: BAND px on each side of the edges of
-    each image but image `anchor`, placed by the translations `globals_h`
-    (planted ones) in a canvas whose origin is the union's top-left
-    corner."""
-    ch, cw = shape
-    band = torch.zeros((ch, cw), dtype=torch.bool)
-    lo_x = min(0.0, min(float(g[0, 2]) for g in globals_h))
-    lo_y = min(0.0, min(float(g[1, 2]) for g in globals_h))
-    for i, (img, g) in enumerate(zip(images, globals_h)):
+    """(canvas_h, canvas_w) bool: the pixels whose centre lies within BAND
+    px of an edge of an image but image `anchor`, the images placed by
+    `globals_h` (into image 0's frame) in the anchor's frame, in a canvas
+    whose origin is the union's top-left corner (``canvas_frame``). An
+    edge is the segment between two of an image's projected corners, in
+    the corners' coordinates (pixel (x, y)'s centre at (x + 0.5, y +
+    0.5)): for a translation, the BAND rows or columns of pixels on each
+    side of the line."""
+    band = torch.zeros(shape, dtype=torch.bool)
+    corners, lo, _ = canvas_frame(shapes(images), in_frame(globals_h, anchor),
+                                  torch.float64)
+    for i, c in enumerate(corners):
         if i == anchor:
             continue
-        h, w = img.shape[:2]
-        x0 = int(round(float(g[0, 2]) - lo_x))
-        y0 = int(round(float(g[1, 2]) - lo_y))
-        xa, xb = max(x0 - BAND, 0), min(x0 + w + BAND, cw)
-        ya, yb = max(y0 - BAND, 0), min(y0 + h + BAND, ch)
-        for r in (y0, y0 + h):
-            band[max(r - BAND, 0):max(r + BAND, 0), xa:xb] = True
-        for c in (x0, x0 + w):
-            band[ya:yb, max(c - BAND, 0):max(c + BAND, 0)] = True
+        q = (c - lo).tolist()
+        for a, b in zip(q, q[1:] + q[:1]):
+            _band_segment(band, a, b)
     return band
+
+
+BAND_ROWS = 64   # rows of a segment's band whose distances are taken at once
+
+
+def _band_segment(band: torch.Tensor, a, b) -> None:
+    """Set the pixels of `band` whose centre lies within BAND of the
+    segment from `a` to `b` ((x, y) each), BAND_ROWS rows at a time, each
+    over the columns where the segment passes those rows."""
+    (ax, ay), (bx, by) = a, b
+    ch, cw = band.shape
+    dx, dy = bx - ax, by - ay
+    length2 = dx * dx + dy * dy
+    y0 = max(int(math.floor(min(ay, by) - BAND)), 0)
+    y1 = min(int(math.ceil(max(ay, by) + BAND)), ch)
+    for r0 in range(y0, y1, BAND_ROWS):
+        r1 = min(r0 + BAND_ROWS, y1)
+        # the part of the segment within BAND of these rows' centres
+        lo_y, hi_y = r0 + 0.5 - BAND, r1 - 0.5 + BAND
+        if dy == 0:
+            t_lo, t_hi = 0.0, 1.0
+        else:
+            t_lo, t_hi = sorted(((lo_y - ay) / dy, (hi_y - ay) / dy))
+            t_lo, t_hi = max(t_lo, 0.0), min(t_hi, 1.0)
+        if t_lo > t_hi:
+            continue
+        xs = (ax + t_lo * dx, ax + t_hi * dx)
+        x0 = max(int(math.floor(min(xs) - BAND)), 0)
+        x1 = min(int(math.ceil(max(xs) + BAND)), cw)
+        if x1 <= x0:
+            continue
+        px = torch.arange(x0, x1, dtype=torch.float64)[None, :] + 0.5
+        py = torch.arange(r0, r1, dtype=torch.float64)[:, None] + 0.5
+        t = ((px - ax) * dx + (py - ay) * dy) / length2 if length2 > 0 \
+            else torch.zeros(())
+        t = t.clamp(0.0, 1.0)
+        ex, ey = px - (ax + t * dx), py - (ay + t * dy)
+        band[r0:r1, x0:x1] |= ex * ex + ey * ey < BAND * BAND
 
 
 def compare_panorama(pano, ref: torch.Tensor, band: torch.Tensor) -> Dict:
@@ -192,15 +266,16 @@ def judge(answers: List[dict], pool, limits: dict,
     into image 0's by its loop (``inv(g_0) @ g_i``; all None when image 0
     was left out). The reference of each sampled scene is drawn once per
     anchor, in `dtype`, on the device of the scene's images (the first
-    CUDA device for host-resident pools, where there is one)."""
+    CUDA device for host-resident pools, where there is one).
+    "failed_at" lists the indices of the answers that failed."""
     h_err, missing, canvas_px, pixel = 0.0, 0, 0, 0
     refs: Dict[tuple, tuple] = {}
-    bad = 0
-    for a in answers:
+    bad: List[int] = []
+    for i, a in enumerate(answers):
         scene = pool[a["scene"]]
         if a["placed"] is None:
             missing += 1
-            bad += 1
+            bad.append(i)
             continue
         truth = planted_globals(scene)
         e = max(corner_error(hp, ht, *_hw(img)) for hp, ht, img
@@ -221,9 +296,11 @@ def judge(answers: List[dict], pool, limits: dict,
             pixel = max(pixel, got["pixel_max_d"])
             worst = worst or got["canvas_px"] > limits["canvas_px"] \
                 or got["pixel_max_d"] > limits["pixel_max_d"]
-        bad += int(worst)
+        if worst:
+            bad.append(i)
     return {
-        "failed": bad,
+        "failed": len(bad),
+        "failed_at": bad,
         "compared": {
             "h_err_px": {"value": h_err, "limit": limits["h_err_px"]},
             "canvas_px": {"value": canvas_px, "limit": limits["canvas_px"]},

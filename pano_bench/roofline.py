@@ -1,15 +1,16 @@
 """The least time each step of a panorama could take on an H100, from
 the shapes of the work, for ``kernels_roofline``.
 
-Copied from the port's ``chip_smoke.py`` (its ``bound`` and its
-per-pixel operation counts, counted there from each kernel's
-arithmetic) and rewritten as the work a step needs, not what today's
-kernel does: each image is detected and described once, each pair the
-entry estimates matched once (``pairs``: "adjacent", the n - 1 pairs of
-a chain or a pair, or "all", the n(n - 1)/2 that an unordered set must
-match), each source read once and the canvas written once.
-A kernel that later replaces another for the same step reads against
-the same count.
+The peaks and the per-pixel operation counts, counted from each
+kernel's arithmetic, are the ones the port's ``chip_smoke.py`` imports
+from here for its kernel table's bounds. The steps are the work a step
+needs, not what today's kernel does: each image is detected and
+described once, each pair the entry estimates matched once (``pairs``:
+"adjacent", the n - 1 pairs of a chain or a pair, or "all", the
+n(n - 1)/2 that an unordered set must match), each source read once,
+each warped image's footprint on the canvas computed once, and the
+canvas written once. A kernel that later replaces another for the same
+step reads against the same count.
 
 Peaks: NVIDIA's data sheet for the H100 SXM, dense, at its 700 W limit
 (the run reports the card's own limit beside the number).
@@ -18,7 +19,7 @@ Peaks: NVIDIA's data sheet for the H100 SXM, dense, at its 700 W limit
 from __future__ import annotations
 
 import math
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12, "int8": 1979e12}
@@ -59,16 +60,32 @@ def least_seconds(nbytes: float, ops: Dict[str, float]) -> float:
     return max(nbytes / HBM_BYTES_PER_S, t_ops)
 
 
+def quad_area(h: int, w: int, g) -> float:
+    """Area (px^2) of an (h, w) image's rectangle mapped by the
+    homography `g` (3x3, rows of numbers): the shoelace sum over its
+    projected corners; h * w for a translation."""
+    pts = []
+    for x, y in ((0, 0), (w, 0), (w, h), (0, h)):
+        d = g[2][0] * x + g[2][1] * y + g[2][2]
+        pts.append(((g[0][0] * x + g[0][1] * y + g[0][2]) / d,
+                    (g[1][0] * x + g[1][1] * y + g[1][2]) / d))
+    return float(abs(sum(xa * yb - xb * ya for (xa, ya), (xb, yb)
+                         in zip(pts, pts[1:] + pts[:1]))) / 2)
+
+
 def panorama_steps(images: Sequence[Tuple[int, int]],
                    canvas: Tuple[int, int], keypoints: int, patch: int,
-                   alpha: bool, pairs: str = "adjacent"
+                   alpha: bool, pairs: str = "adjacent",
+                   globals_h: Optional[Sequence] = None, anchor: int = 0
                    ) -> Dict[str, float]:
-    """Seconds of each step for one panorama of `images` ((h, w) each,
-    the first standing for the anchor, which is placed and not warped)
-    on a `canvas` (h, w), with `keypoints` per image and `patch`-sized
-    descriptors; `alpha` when the blend warps with the ramp alpha;
-    `pairs` which pairs are estimated (``estimates``): each next image
-    against the one before, or every pair."""
+    """Seconds of each step for one panorama of `images` ((h, w) each;
+    image `anchor` is placed and not warped) on a `canvas` (h, w), with
+    `keypoints` per image and `patch`-sized descriptors; `alpha` when
+    the blend warps with the ramp alpha; `pairs` which pairs are
+    estimated (``estimates``): each next image against the one before,
+    or every pair. Each warped image counts the pixels of its footprint
+    on the canvas: the area of its rectangle mapped by its homography
+    into the anchor's frame (`globals_h`), h * w where none is given."""
     d = patch * patch * 3
     steps = {"detect": 0.0, "describe": 0.0, "match": 0.0,
              "warp_compose": 0.0, "eigvec": 0.0}
@@ -87,7 +104,9 @@ def panorama_steps(images: Sequence[Tuple[int, int]],
         {"int8": 2.0 * kk * d, "f32": MATCH_EPILOGUE_OPS * kk})
     steps["eigvec"] = n_pairs * least_seconds(81 * 4 + 9 * 4,
                                             {"f64": EIGVEC_OPS})
-    warped_px = sum(h * w for h, w in images[1:])
+    warped_px = sum(h * w if globals_h is None
+                    else quad_area(h, w, globals_h[i])
+                    for i, (h, w) in enumerate(images) if i != anchor)
     per_px = WARP_OPS_PER_PX + (ALPHA_OPS_PER_PX if alpha else 0)
     steps["warp_compose"] = least_seconds(
         sum(h * w * 3 for h, w in images) + canvas[0] * canvas[1] * 3,

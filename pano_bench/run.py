@@ -5,7 +5,9 @@
 
 Set-up (counted in ``setup_s``, from this module's import): import
 torch and the port, make the cell's pool of planted scenes from
-the seed on the first card, and drive the whole pool once through the
+the seed on the first card (by the traffic's scene model, ``"scene"``:
+a file ``scene_models/<scene>.py``, crops at offsets where it names
+none), and drive the whole pool once through the
 cell's loop, which builds the kernels in a checkout's first run
 (``build/pano_tpu_torch/``, inside the checkout) and makes every shape
 and table the traffic uses.
@@ -19,7 +21,11 @@ panorama is ready. It reports the cell's end-to-end metrics.
 ``torch.profiler``, the loop drained before and after, with the layer
 spans of ``spans.json`` installed. It reports the cell's per-layer
 metrics, read by ``metrics/<name>.py`` from the trace, and the
-breakdown.
+breakdown. Where one of those metrics is taken on the host's clock
+(``window.*``: the rate and the tail of a cell whose runs spread too
+widely for an end-to-end bound), the window of ``--trace 0`` runs
+first, untraced and as it is there, and its numbers are handed to the
+readers with the trace (``Trace.timed``).
 
 The traffic file names the loop ("driver": a loop of ``drivers.py``,
 or a file ``loops/<driver>.py``) and may say which pairs a panorama
@@ -32,12 +38,12 @@ Either way, once the loop has ended, the peak memory has been read and
 the program's state is freed, the answers are held against the plain
 reference (``reference.py``): every panorama's placement, and the
 panoramas sampled from the seed (each scene's at an occurrence drawn
-from [0, ``sample_cycles``); in the traced run, from the panoramas that
-the loop makes right after the traced ones, so that the sample's copies
-stay out of the trace). The numbers compared are printed, each
-with its limit, as the last lines of standard error and under
-"compared", the last key of the result line, the last line of standard
-output.
+from [0, ``sample_cycles``); in a traced run without the window, from
+the panoramas that the loop makes right after the traced ones, so that
+the sample's copies stay out of the trace). The numbers compared are
+printed, each with its limit, as the last lines of standard error and
+under "compared", the last key of the result line, the last line of
+standard output.
 
 Without a CUDA device, or with fewer than the cell asks for, it prints
 why on standard error and exits 2, with no result. If the process holds
@@ -100,15 +106,14 @@ def merged(base: dict, over: Optional[dict]) -> dict:
 
 def make_sample(seed: int, pool, cfg: dict, cycles: int, pinned: bool):
     """Each scene's occurrence to keep, drawn from the seed in [0,
-    `cycles`), with room for its planted panorama and a pixel more each
-    way."""
+    `cycles`), with room for its planted panorama (``reference.canvas``,
+    in image 0's frame) and a pixel more each way."""
     rng = random.Random(f"sample:{seed}")
     sizes = {}
     for k, scene in enumerate(pool):
-        xs = [x for x, _ in scene.offsets]
-        ys = [y for _, y in scene.offsets]
-        sizes[k] = (cfg["image_h"] + max(ys) - min(ys) + 2) \
-            * (cfg["image_w"] + max(xs) - min(xs) + 2) * 3
+        ch, cw = reference.canvas(reference.shapes(scene.images),
+                                  scenes.planted_globals(scene))
+        sizes[k] = (ch + 2) * (cw + 2) * 3
     return drivers.Sample({k: rng.randrange(cycles) for k in sizes}, sizes,
                           pinned)
 
@@ -139,18 +144,18 @@ def card_limit() -> str:
 
 def window_work(answers: List[dict], cfg: dict, pool, alpha: bool,
                 pairs: str = "adjacent") -> dict:
-    """The roofline steps' least seconds summed over the answers."""
+    """The roofline steps' least seconds summed over the answers, each
+    panorama's drawn in its anchor's frame on the planted canvas."""
     work: dict = {}
-    h, w = cfg["image_h"], cfg["image_w"]
     harris = cfg["pano_config"].get("harris", {})
     k = harris.get("max_keypoints", 8192)
     p = harris.get("patch_size", 5)
     for a in answers:
-        offs = pool[a["scene"]].offsets
-        xs, ys = [x for x, _ in offs], [y for _, y in offs]
-        canvas = (h + max(ys) - min(ys), w + max(xs) - min(xs))
-        steps = roofline.panorama_steps([(h, w)] * len(offs), canvas, k, p,
-                                        alpha, pairs)
+        scene, anchor = pool[a["scene"]], a.get("anchor", 0)
+        hw = reference.shapes(scene.images)
+        frame = reference.in_frame(scenes.planted_globals(scene), anchor)
+        steps = roofline.panorama_steps(hw, reference.canvas(hw, frame), k,
+                                        p, alpha, pairs, frame, anchor)
         for s, v in steps.items():
             work[s] = work.get(s, 0.0) + v
     return work
@@ -168,9 +173,7 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     cfg = merged(spec.config(cell["config"]), overrides.get("config"))
     traffic = merged(spec.traffic(cell["traffic"]), overrides.get("traffic"))
     limits = spec.limits(cell["config"])
-    pool = scenes.make_pool(traffic["scenes"], cfg["image_h"],
-                            cfg["image_w"], seed, devices[0],
-                            traffic["resident"])
+    pool = spec.pool(traffic, cfg, seed, devices[0])
     pairs = traffic.get("pairs", "adjacent")
     make, found = drivers.loop_of(traffic["driver"], spec)
     run = drivers.Run(pano_config(cfg["pano_config"]), traffic, pool,
@@ -179,6 +182,8 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     sample = make_sample(seed, pool, cfg, int(traffic["sample_cycles"]),
                          cuda)
     n_pool = len(pool)
+    per_layer = spec.metrics(cell["name"], "per_layer")
+    timed = not trace or any(m["source"] == "host_clock" for m in per_layer)
     with drivers.captures(traffic["driver"], run, found), \
             contextlib.redirect_stdout(drivers.Silent()):
         loop = make(run)
@@ -186,20 +191,23 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
         run.sync()
         setup_s = time.perf_counter() - t_start
         _reset_peaks(devices)
-        if not trace:
+        answers = []
+        if timed:
             t_open = time.perf_counter()
             answers = loop(drivers.until(t_open + seconds), sample)
             run.sync()
             window_s = max(a["t1"] for a in answers) - t_open
-            peak = _peak_bytes(devices)
-        else:
+        n_window = len(answers)
+        if trace:
             traced_answers, t = traced(spec, run, loop,
                                        int(traffic["trace_panoramas"]),
                                        devices, getattr(found, "SPANS", []))
-            peak = _peak_bytes(devices)
+            answers = answers + traced_answers
+        peak = _peak_bytes(devices)
+        if trace and not timed:
             # The pixel sample comes from the panoramas that the same
             # loop makes next, so that its copies stay out of the trace.
-            answers = traced_answers + loop(drivers.count(
+            answers = answers + loop(drivers.count(
                 n_pool * int(traffic["sample_cycles"])), sample)
             run.sync()
     del loop, run
@@ -210,7 +218,14 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
     judged = reference.judge(answers, pool, limits)
     ok = judged["failed"] == 0 and bool(answers) \
         and reference.within(judged["compared"])
-    lat = [(a["t1"] - a["t0"]) * 1e3 for a in answers]
+    window = {}
+    if timed:
+        failed = sum(i < n_window for i in judged["failed_at"])
+        window = {
+            "panoramas_per_s": (n_window - failed) / window_s,
+            "latency_p95_ms": tracing.percentile(
+                [(a["t1"] - a["t0"]) * 1e3 for a in answers[:n_window]], 95),
+        }
     device = {
         "platform": "gpu" if cuda else "cpu",
         "kind": torch.cuda.get_device_name(devices[0]) if cuda else "cpu",
@@ -219,12 +234,7 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
         "power_limit": card_limit() if cuda else "none",
     }
     if not trace:
-        values = {
-            "panoramas_per_s": (len(answers) - judged["failed"]) / window_s,
-            "latency_p95_ms": tracing.percentile(lat, 95),
-            "peak_mem_mib": peak / 2 ** 20,
-            "setup_s": setup_s,
-        }
+        values = dict(window, peak_mem_mib=peak / 2 ** 20, setup_s=setup_s)
         metrics = {m["name"]: {"value": values[m["name"]], "unit": m["unit"]}
                    for m in spec.metrics(cell["name"], "end_to_end")
                    if m["name"] in values}
@@ -232,14 +242,15 @@ def run_cell(spec: Spec, cell: dict, seed: int, seconds: float, trace: bool,
         work = window_work(traced_answers, cfg, pool,
                            cfg["pano_config"].get("stitch", {}).get(
                                "blend", "overlay") != "overlay", pairs)
-        n_img = len(pool[0].offsets)
+        n_img = len(pool[0].images)
         n = len(traced_answers)
         t.counts = {"panoramas": n,
                     "estimates": n * roofline.estimates(n_img, pairs),
                     "images": n * n_img}
         t.work = work
+        t.timed = window
         metrics = {}
-        for m in spec.metrics(cell["name"], "per_layer"):
+        for m in per_layer:
             v = spec.reader(m["name"])(t)
             if v is not None:
                 metrics[m["name"]] = {"value": v, "unit": m["unit"]}

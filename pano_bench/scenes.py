@@ -1,9 +1,15 @@
 """Scenes with planted geometry, made from the seed.
 
-Every panorama of the benchmark is a set of crops of one textured scene
-at planted offsets, so its truth is known without the code under test:
-image i lies at ``offsets[i]`` (x, y) in the scene, so the homography
-that places it in image 0's frame is the translation
+Every panorama of the benchmark is a set of images of one textured
+scene whose geometry the harness planted, so its truth is known without
+the code under test: each scene carries the homography of each image
+into image 0's frame (``planted_globals``). A traffic file picks how
+its scenes are made by its "scene" key: a scene model, the file
+``scene_models/<scene>.py`` (``Spec.scene_model``), which defines
+``make_pool(traffic, cfg, seed, device, resident)``. Without the key the
+model is ``crops``, this module's ``make_pool``: crops of one texture at
+planted offsets, image i at ``offsets[i]`` (x, y) in the scene, so that
+the homography that places it in image 0's frame is the translation
 ``offsets[i] - offsets[0]``, and the panorama is the scene over the
 union of the crops.
 
@@ -13,15 +19,15 @@ and the 5x5 patches around them are distinct. It is drawn on the
 device in a few bulk calls; where squares overlap, the one drawn last
 wins, as if they were painted in order.
 
-The traffic fixes the set of offsets; the seed draws the textures and
-the order in which the pool holds the scenes, so that every seed gives
-the same set of sizes.
+The traffic fixes the geometry (here the set of offsets); the seed
+draws the textures and the order in which the pool holds the scenes
+(``pool_order``), so that every seed gives the same set of sizes.
 """
 
 from __future__ import annotations
 
 import random
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,7 +40,11 @@ SQUARE_LOW, SQUARE_HIGH = 60, 255   # square colours 60..254
 
 class Scene(NamedTuple):
     images: list            # (h, w, 3) uint8 BGR: tensors, or numpy on the host
-    offsets: Tuple[Tuple[int, int], ...]   # each image's (x, y) in the scene
+    # each crop's (x, y) in the scene; None where the model plants no
+    # translations
+    offsets: Optional[Tuple[Tuple[int, int], ...]]
+    # each image's float64 3x3 homography into image 0's frame
+    planted: Tuple[np.ndarray, ...]
 
 
 def texture(h: int, w: int, gen: torch.Generator, device) -> torch.Tensor:
@@ -75,24 +85,37 @@ def generator(seed: int, device) -> torch.Generator:
     return gen
 
 
+def pool_order(n: int, seed: int) -> List[int]:
+    """The order, drawn from `seed`, in which a pool holds the traffic's
+    `n` scenes."""
+    order = list(range(n))
+    random.Random(seed).shuffle(order)
+    return order
+
+
+def resident_images(imgs: List[torch.Tensor], resident: str) -> list:
+    """`imgs` as the caller holds them: "device" (the tensors) or "host"
+    (numpy, as a caller that decoded files holds them)."""
+    if resident == "host":
+        return [t.cpu().numpy() for t in imgs]
+    if resident != "device":
+        raise ValueError(f"resident must be device or host: {resident}")
+    return imgs
+
+
 def make_pool(scenes: Sequence[Sequence[Sequence[int]]], h: int, w: int,
               seed: int, device, resident: str) -> List[Scene]:
-    """The pool: the traffic's `scenes` (each a list of (x, y) offsets)
-    in an order drawn from `seed`, each with its own texture. `resident`
-    is "device" (tensors on `device`) or "host" (numpy, as a caller that
-    decoded files holds them)."""
-    order = list(range(len(scenes)))
-    random.Random(seed).shuffle(order)
+    """The crops model's pool: the traffic's `scenes` (each a list of
+    (x, y) offsets) in an order drawn from `seed`, each with its own
+    texture, on `device` or the host (`resident`)."""
     gen = generator(seed, device)
     pool = []
-    for k in order:
+    for k in pool_order(len(scenes), seed):
         offsets = tuple((int(x), int(y)) for x, y in scenes[k])
         imgs = scene_images(offsets, h, w, gen, device)
-        if resident == "host":
-            imgs = [t.cpu().numpy() for t in imgs]
-        elif resident != "device":
-            raise ValueError(f"resident must be device or host: {resident}")
-        pool.append(Scene(imgs, offsets))
+        (x0, y0) = offsets[0]
+        planted = tuple(translation(x - x0, y - y0) for x, y in offsets)
+        pool.append(Scene(resident_images(imgs, resident), offsets, planted))
     return pool
 
 
@@ -102,5 +125,4 @@ def translation(x: float, y: float) -> np.ndarray:
 
 def planted_globals(scene: Scene) -> List[np.ndarray]:
     """The homography of each image into image 0's frame."""
-    (x0, y0) = scene.offsets[0]
-    return [translation(x - x0, y - y0) for x, y in scene.offsets]
+    return [g.copy() for g in scene.planted]

@@ -1,9 +1,10 @@
 """Finding a cell's parts by name: ``BENCHMARK.json`` and the data files,
-metric readers and loops under this folder.
+metric readers, loops and scene models under this folder.
 
-A later change adds a cell, a traffic mix, a configuration or a metric
-by adding files here and entries to ``BENCHMARK.json``; nothing in this
-module names one of them.
+A later change adds a cell, a traffic mix, a configuration, a metric or
+a scene model by adding files here and entries to ``BENCHMARK.json``;
+nothing in this module names one of them but the scene model of a
+traffic file that names none (``DEFAULT_SCENE``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,9 @@ from types import ModuleType
 from typing import Callable, Dict, List, Optional
 
 HERE = pathlib.Path(__file__).resolve().parent
+# The scene model of a traffic file without a "scene" key: crops of one
+# texture at the offsets the traffic lists.
+DEFAULT_SCENE = "crops"
 
 
 class Spec:
@@ -30,6 +34,7 @@ class Spec:
             self.bench = json.load(f)
         self._readers: Dict[str, Callable] = {}
         self._loops: Dict[str, ModuleType] = {}
+        self._scene_models: Dict[str, ModuleType] = {}
 
     def _load_json(self, path: pathlib.Path) -> dict:
         with open(path) as f:
@@ -81,6 +86,25 @@ class Spec:
             self._loops[name] = _load(self.dir / "loops" / f"{name}.py",
                                       f"pano_bench_loop_{len(self._loops)}")
         return self._loops[name]
+
+    def scene_model(self, name: str) -> ModuleType:
+        """The module of ``scene_models/<name>.py``: how the scenes of a
+        traffic file that names it as its "scene" are made (its
+        ``make_pool``)."""
+        if name not in self._scene_models:
+            self._scene_models[name] = _load(
+                self.dir / "scene_models" / f"{name}.py",
+                f"pano_bench_scene_{len(self._scene_models)}")
+        return self._scene_models[name]
+
+    def pool(self, traffic: dict, cfg: dict, seed: int, device) -> list:
+        """The pool of a cell with this traffic and configuration: its
+        scene model's ``make_pool`` (``DEFAULT_SCENE`` where the traffic
+        names none), made from `seed` on `device`, held as the traffic's
+        "resident" says."""
+        model = self.scene_model(traffic.get("scene", DEFAULT_SCENE))
+        return model.make_pool(traffic, cfg, seed, device,
+                               traffic["resident"])
 
 
 def _load(path: pathlib.Path, module_name: str) -> ModuleType:

@@ -2,14 +2,11 @@
 written into a copy of this folder: a configuration, its limits, a
 traffic file that names ``loops/auto_serial.py`` with ``"pairs": "all"``,
 the cell's CPU sizes under ``tests/shrunk/``, and the BENCHMARK.json
-entries. Nothing that is there is changed. ``place_anchor`` puts the
-global composite's anchor at its nearest pixel (``test_auto_serial``)."""
+entries. Nothing that is there is changed."""
 
 import json
 import pathlib
 import shutil
-
-import numpy as np
 
 from pano_bench.spec import HERE
 from pano_bench.tests.small import overrides
@@ -70,22 +67,11 @@ def add_auto_cell(bench_dir: pathlib.Path, shape: str) -> str:
     bench["workloads"].append({
         "name": cell, "config": config, "traffic": f"auto_{shape}",
         "chips": 1, "why": f"one caller, unordered {shape}, auto mode"})
+    for metric in bench["end_to_end"]:
+        if "workloads" in metric:       # the rate and the tail, as auto's
+            metric["workloads"].append(cell)
     path.write_text(json.dumps(bench))
     return cell
-
-
-def place_anchor(monkeypatch, shift=(0.0, 0.0)):
-    """The anchor at the canvas pixel nearest its exact place (moved by
-    `shift` (x, y) px): ``blend_global`` takes the canvas translation
-    only to place the anchor, the warps being planned already."""
-    from pano_tpu_torch import pipeline
-    real = pipeline.blend_global
-
-    def blend(anchor_img, t_mat, *args, **kwargs):
-        t_mat = t_mat.copy()
-        t_mat[:2, 2] = np.round(t_mat[:2, 2]) + shift
-        return real(anchor_img, t_mat, *args, **kwargs)
-    monkeypatch.setattr(pipeline, "blend_global", blend)
 
 
 def _write(path: pathlib.Path, obj) -> None:

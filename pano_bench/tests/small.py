@@ -11,13 +11,20 @@ import torch
 
 SEED = 2 ** 31 + 977   # more than 32 signed bits hold
 
-# Cells whose traffic and drivers are here and measured, but that
-# BENCHMARK.json leaves out (their runs spread too widely on a shared
-# host for the largest bound; PERF.md section 7).
+# Cells whose traffic and drivers are here, but that BENCHMARK.json
+# leaves out (PERF.md section 7): the mesh cell, whose runs spread too
+# widely on a shared host for the largest bound; and the rotating pair,
+# a rehearsal of a rotating camera's configuration to come, run under
+# the 4K pair's configuration and limits, which were set on translations.
 READY = [
     {"name": "pair4k.batch4_mesh4", "config": "mountain_pair_4k",
      "traffic": "batch4_mesh4", "chips": 4},
+    {"name": "pair4k.rotate_pair", "config": "mountain_pair_4k",
+     "traffic": "rotate_pair", "chips": 1},
 ]
+# Of READY, the cells whose correctness at the CPU size is recorded, not
+# asserted (``test_scene_models``).
+REHEARSALS = ["pair4k.rotate_pair"]
 
 
 def overrides(name: str, bench_dir=None) -> dict:

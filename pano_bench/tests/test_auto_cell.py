@@ -1,8 +1,9 @@
 """``oilseed_auto.host_serial`` at its CPU size: an answer altered where
 auto mode produces it turns ``correct`` false. (``test_runs.py``'s
-altered estimate is ``pipeline.estimate_row``, which the pair, the chain
-and the batched cells call and auto mode does not: it estimates each pair
-from cached features through ``pipeline.auto_pair_row``.)"""
+``test_estimate_altered`` alters ``pipeline.estimate_row``, which the
+loops of ``drivers.DRIVERS`` call and auto mode does not: it estimates
+each pair from cached features through ``pipeline.auto_pair_row``. This
+is that test for the auto cell.)"""
 
 import time
 

@@ -2,17 +2,10 @@
 the benchmark to which its cells were added by files alone (``added``):
 a row of three rooted at its middle image, image 1, and a 2x2 grid.
 
-The port's global composite puts its anchor at the truncated translation
-of the canvas (``int(t_mat)``, ``pipeline.blend_global``), while it
-warps the other images by the exact one. Where the anchor is not the
-canvas's top-left image, an estimate that puts the extent a hair short
-of the planted integer moves the anchor one pixel off its neighbours,
-and the comparison rightly fails (PERF.md, open questions). The cells
-that must come out correct here check the harness's frame and anchor,
-so ``exact_anchor`` puts the anchor at the canvas pixel nearest its
-exact place; the planted fault ``anchor_a_pixel_off`` shows that the
-comparison catches the port's, and ``anchor_as_the_program_places_it``
-that the port's own anchor still fails it."""
+The port's global composite puts its anchor at the canvas pixel nearest
+its exact place (``pipeline.blend_global``), where it warps the other
+images to. The planted fault ``anchor_a_pixel_off`` moves the anchor a
+pixel off its neighbours, which the comparison must catch."""
 
 import time
 
@@ -23,7 +16,7 @@ from pano_bench import drivers
 from pano_bench.control import control_run
 from pano_bench.run import run_cell
 from pano_bench.spec import Spec
-from pano_bench.tests.added import add_auto_cell, copy_bench, place_anchor
+from pano_bench.tests.added import add_auto_cell, copy_bench
 from pano_bench.tests.small import SEED, overrides
 
 
@@ -55,13 +48,8 @@ def anchors(monkeypatch):
     return seen
 
 
-@pytest.fixture
-def exact_anchor(monkeypatch):
-    place_anchor(monkeypatch)
-
-
 @pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
-def test_row_rooted_at_image_1(spec, exact_anchor, anchors, trace):
+def test_row_rooted_at_image_1(spec, anchors, trace):
     out = run(spec, "auto.row3", trace)
     assert out["correct"], out["compared"]
     assert out["attempted"] > 0 and out["failed"] == 0
@@ -74,7 +62,7 @@ def test_row_rooted_at_image_1(spec, exact_anchor, anchors, trace):
                                        "peak_mem_mib", "setup_s"}
 
 
-def test_grid_2x2(spec, exact_anchor, anchors):
+def test_grid_2x2(spec, anchors):
     out = run(spec, "auto.grid2x2")
     assert out["correct"], out["compared"]
     assert anchors
@@ -86,7 +74,7 @@ def test_control_is_not_correct(spec):
     assert not got["correct"], got
 
 
-def test_estimate_altered(spec, exact_anchor, monkeypatch):
+def test_estimate_altered(spec, monkeypatch):
     """Every pair's estimate row with its x translation 2 px off."""
     from pano_tpu_torch import pipeline
     real = pipeline.auto_pair_row
@@ -102,19 +90,17 @@ def test_estimate_altered(spec, exact_anchor, monkeypatch):
 
 
 def test_anchor_a_pixel_off(spec, monkeypatch):
-    """The anchor one pixel left of where its neighbours are warped."""
-    place_anchor(monkeypatch, (-1.0, 0.0))
-    out = run(spec, "auto.row3")
-    assert not out["correct"]
-    assert out["compared"]["pixel_max_d"]["value"] > 20
+    """The anchor one pixel left of where its neighbours are warped:
+    ``blend_global`` takes the canvas translation only to place the
+    anchor, the warps being planned already."""
+    from pano_tpu_torch import pipeline
+    real = pipeline.blend_global
 
-
-def test_anchor_as_the_program_places_it(spec):
-    """The program's own anchor, at the truncated canvas translation: a
-    pixel off its neighbours in the row rooted at image 1, so the
-    comparison fails (PERF.md, open questions). Once the program puts the
-    anchor at its nearest pixel this run is correct and this test fails:
-    then it goes, and with it ``place_anchor``."""
+    def blend(anchor_img, t_mat, *args, **kwargs):
+        t_mat = t_mat.copy()
+        t_mat[0, 2] -= 1.0
+        return real(anchor_img, t_mat, *args, **kwargs)
+    monkeypatch.setattr(pipeline, "blend_global", blend)
     out = run(spec, "auto.row3")
     assert not out["correct"]
     assert out["compared"]["pixel_max_d"]["value"] > 20

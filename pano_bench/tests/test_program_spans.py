@@ -13,7 +13,7 @@ SPEC = Spec()
 # The readers of the program's ranges; every other reader reads the
 # layer spans and the device alone.
 PROGRAM_READERS = ["orchestration.host_syncs", "orchestration.upload_ms",
-                   "compose.context.device_ms"]
+                   "compose.context.device_ms", "compose.context.launches"]
 READERS = [m["name"] for m in SPEC.bench["per_layer"]
            if m["name"] not in PROGRAM_READERS]
 

@@ -14,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from pano_bench import drivers
 from pano_bench.control import control_run
 from pano_bench.run import run_cell
 from pano_bench.spec import HERE, Spec
-from pano_bench.tests.small import READY, SEED, cpu_devices, overrides
+from pano_bench.tests.small import READY, REHEARSALS, SEED, cpu_devices, \
+    overrides
 
 SPEC = Spec()
 CELLS = [w["name"] for w in SPEC.bench["workloads"]] + [c["name"]
@@ -30,6 +32,13 @@ def cell_of(name):
     return ready[0] if ready else SPEC.workload(name)
 
 
+# The cells whose loop estimates each pair through pipeline.estimate_row
+# (the loops of drivers.DRIVERS); a cell with a loop file of its own
+# plants its altered estimate in its own test (test_auto_cell.py).
+ESTIMATE_ROW_CELLS = [n for n in CELLS if SPEC.traffic(
+    cell_of(n)["traffic"])["driver"] in drivers.DRIVERS]
+
+
 def run(name, trace=False, seconds=0.5):
     cell = cell_of(name)
     return run_cell(SPEC, cell, SEED, seconds, trace, cpu_devices(cell),
@@ -37,7 +46,7 @@ def run(name, trace=False, seconds=0.5):
 
 
 @pytest.mark.parametrize("trace", [False, True], ids=["window", "traced"])
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", [n for n in CELLS if n not in REHEARSALS])
 def test_cell_runs_and_is_correct(name, trace):
     out = run(name, trace)
     assert out["correct"], out["compared"]
@@ -50,12 +59,15 @@ def test_cell_runs_and_is_correct(name, trace):
     elif trace:
         assert {"busy_s", "window_s"} <= set(out["device"])
         assert "breakdown" in out
-        # host spans exist on the CPU; device metrics read nothing there
-        assert "ransac.host_ms" in out["metrics"]
+        # host spans and the host's clock read on the CPU; device
+        # metrics read nothing there
+        per_layer = {m["name"]: m for m in SPEC.metrics(name, "per_layer")}
+        assert {n for n in per_layer if n == "ransac.host_ms"
+                or per_layer[n]["source"] == "host_clock"} <= set(out["metrics"])
         assert "device.idle_pct" not in out["metrics"]
     elif name not in [c["name"] for c in READY]:
-        assert set(out["metrics"]) == {"panoramas_per_s", "latency_p95_ms",
-                                       "peak_mem_mib", "setup_s"}
+        assert set(out["metrics"]) == {
+            m["name"] for m in SPEC.metrics(name, "end_to_end")}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -99,7 +111,7 @@ def test_pair_compose_left_unchanged(monkeypatch):
         assert out["compared"]["pixel_max_d"]["value"] > 100
 
 
-@pytest.mark.parametrize("name", CELLS)
+@pytest.mark.parametrize("name", ESTIMATE_ROW_CELLS)
 def test_estimate_altered(monkeypatch, name):
     shifted_estimate(monkeypatch)
     out = run(name)

@@ -149,7 +149,8 @@ def test_judge_without_an_anchor_is_anchor_0():
     offs = [(0, 0), (30, 4), (64, 9)]
     gen = scenes.generator(13, "cpu")
     pool = [scenes.Scene(scenes.scene_images(offs, 40, 50, gen, "cpu"),
-                         tuple(offs))]
+                         tuple(offs), tuple(scenes.translation(x, y)
+                                            for x, y in offs))]
     truth = scenes.planted_globals(pool[0])
     ref = reference.panorama(pool[0].images, truth)
     off = [truth[0], truth[1], scenes.translation(64.4, 9)]

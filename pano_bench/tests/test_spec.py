@@ -12,8 +12,8 @@ import torch
 
 from pano_bench import drivers
 from pano_bench.run import run_cell
-from pano_bench.spec import HERE, Spec
-from pano_bench.tests.added import add_auto_cell, place_anchor, snapshot
+from pano_bench.spec import DEFAULT_SCENE, HERE, Spec
+from pano_bench.tests.added import add_auto_cell, snapshot
 from pano_bench.tests.small import SEED, overrides
 
 SPEC = Spec()
@@ -65,8 +65,10 @@ def test_cell_and_traffic_found_by_name(cell):
         len(traffic["scenes"]) * traffic["sample_cycles"]
     reported = [m["name"] for m in SPEC.metrics(cell["name"], "per_layer")]
     assert reported
-    assert any(m["name"] == "panoramas_per_s"
-               for m in SPEC.metrics(cell["name"], "end_to_end"))
+    end_to_end = {m["name"] for m in SPEC.metrics(cell["name"], "end_to_end")}
+    assert "setup_s" in end_to_end and len(end_to_end) >= 2
+    assert all(m["moves"] in end_to_end
+               for m in SPEC.metrics(cell["name"], "per_layer"))
 
 
 def test_every_traffic_file_and_metric_reader_loads():
@@ -76,6 +78,8 @@ def test_every_traffic_file_and_metric_reader_loads():
         traffic = SPEC.traffic(path.stem)
         assert callable(drivers.loop_of(traffic["driver"], SPEC)[0]), path
         assert traffic["resident"] in ("device", "host"), path
+        model = SPEC.scene_model(traffic.get("scene", DEFAULT_SCENE))
+        assert callable(model.make_pool), path
     for path in sorted((HERE / "metrics").glob("*.py")):
         assert callable(SPEC.reader(path.stem)), path
 
@@ -90,6 +94,13 @@ def test_every_loop_file_loads_and_makes_a_loop():
         assert not hasattr(found, "capture") or callable(found.capture)
         for entry in getattr(found, "SPANS", []):
             assert set(entry) == {"target", "layer"}, path
+
+
+def test_every_scene_model_file_loads_and_crops_is_the_default():
+    paths = sorted((HERE / "scene_models").glob("*.py"))
+    assert DEFAULT_SCENE in [p.stem for p in paths]
+    for path in paths:
+        assert callable(SPEC.scene_model(path.stem).make_pool), path
 
 
 def test_cells_are_distinct_and_four_chips_are_few():
@@ -107,15 +118,19 @@ def test_metric_entry(metric):
     assert NAME.match(metric["name"]) and UNIT.match(metric["unit"])
     assert metric["better"] in ("lower", "higher")
     assert metric["source"] in SOURCES
+    for w in metric.get("workloads", []):
+        SPEC.workload(w)
     if metric in BENCH["end_to_end"]:
+        assert set(metric) <= {"name", "unit", "better", "bound", "source",
+                               "workloads"}
         assert metric["source"] in ("host_clock", "device_trace")
         assert 0.01 <= metric["bound"] <= 0.25
     else:
-        assert metric["moves"] == "panoramas_per_s"
+        assert set(metric) == {"name", "unit", "better", "source", "layer",
+                               "moves", "workloads"}
+        assert metric["moves"] in {m["name"] for m in BENCH["end_to_end"]}
         assert 1 <= len(metric["layer"]) <= 200
         assert callable(SPEC.reader(metric["name"]))
-        for w in metric["workloads"]:
-            SPEC.workload(w)
 
 
 def test_setup_s_is_an_end_to_end_metric():
@@ -123,16 +138,15 @@ def test_setup_s_is_an_end_to_end_metric():
     assert names["setup_s"]["bound"] <= 0.25
 
 
-def test_a_cell_and_a_metric_added_by_files_alone(tmp_path, monkeypatch):
+def test_a_cell_and_a_metric_added_by_files_alone(tmp_path):
     """A copy of this folder with one more traffic file, one more metric
     reader and the BENCHMARK.json entries for them: the new cell runs
     and reports the new metric. Then a cell with a loop of its own
     (``loops/auto_serial.py``), added as the next configuration would
     be: a configuration, limits, a traffic file with "pairs": "all", its
     CPU sizes under ``tests/shrunk/``, a reader of a range of the
-    program, and the entries: it runs correct (its anchor placed at the
-    nearest pixel: ``test_auto_serial``'s docstring) and reports the
-    reader. No file that was there changed."""
+    program, and the entries: it runs correct and reports the reader. No
+    file that was there changed."""
     bench_dir = tmp_path / "pano_bench"
     shutil.copytree(HERE, bench_dir,
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -178,7 +192,6 @@ def test_a_cell_and_a_metric_added_by_files_alone(tmp_path, monkeypatch):
         "moves": "panoramas_per_s", "workloads": [name]})
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
     spec = Spec(bench_dir)
-    place_anchor(monkeypatch)
     out = run_cell(spec, spec.workload(name), SEED, 0.3, True,
                    [torch.device("cpu")], time.perf_counter(),
                    overrides(name, bench_dir))

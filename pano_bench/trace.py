@@ -177,13 +177,16 @@ class Trace:
     `counts` are the harness's own counts of the window's work
     (panoramas, estimates, images), and `work` the roofline steps'
     bounds (``roofline.py``). Times are in microseconds, as the trace
-    gives them; the readers turn them into their units."""
+    gives them; the readers turn them into their units. `timed` holds
+    the host-clock numbers of the untraced run's window where the traced
+    run made one first (``run.run_cell``), else nothing."""
 
     def __init__(self, trace: dict, counts: Dict[str, int],
                  work: Dict[str, float], kernel_steps: Dict[str, list],
                  devices: Sequence[int]):
         self.counts = counts
         self.work = work
+        self.timed: Dict[str, float] = {}
         self.devices = list(devices)
         self.step_of = {k: step for step, names in kernel_steps.items()
                         for k in names}
