@@ -27,7 +27,10 @@ non-zero and the last line is not printed.
    one (K4b with and without the ramp alpha, K5 overlay and feather), K6
    a step of the strip's chain, K7 on the planted pair's 9x9 normal
    matrix as the estimate hands it over (also against float64 eigh), K10
-   on the planted pair's match points and the default table, K8 /
+   on the planted pair's match points and the default table, K11 (the
+   direct alignment's passes) on a rotating camera's pair from RANSAC's
+   estimate (the overlap's count equal, image 1's corners within 1e-4
+   px: its float64 sums run in another order than the plain version's), K8 /
    K9 at a chain window's size (the whole blend also equal to
    ops/blend.py's route), and the batched K1 (the strip) and K4b (the
    chain's three windows), also equal to their single launches. Each
@@ -100,6 +103,13 @@ PYRAMID = {
     "K9": ("pyramid_collapse", "pyramid.cu", None),
 }
 PYRAMID_WINDOW = (1504, 2016)  # a chain window of the oilseed images
+# The direct alignment of a pair's homography, which replaces no TPU kernel
+# (the JAX package has none).
+ALIGN = {"K11": ("align_gauss_newton", "align.cu", None)}
+# The rotating camera's pair K11 is held and timed on (the benchmark's
+# rotating_pair_4k configuration and the first of its rotate_serial poses).
+ALIGN_POSE = (30.0, 0.5, 0.25)
+ALIGN_SEED = 4200000001
 
 # The least time a kernel could take is the larger of its bytes over the
 # memory rate and its operations over the peak rate of their type (the
@@ -341,6 +351,73 @@ def batched_rows(torch, timer, res, device_runs, strip, strip_np) -> None:
         device_runs.append((k, "singles_device_ms", singles, None))
 
 
+def align_row(torch, timer, res, device_runs) -> None:
+    """K11 on a rotating camera's 4156x3117 pair (pano_bench's rotating
+    scene model at ALIGN_POSE, the rotating_pair_4k configuration) from
+    RANSAC's estimate without the alignment: against its plain version
+    (the same overlap count; the float64 sums run in another order, so the
+    parameters agree to ~1e-12 and image 1's corners within 1e-4 px), its
+    launches, `ms`, plain and bound (pano_bench/align_roofline.py)."""
+    import dataclasses
+    import pathlib
+
+    from pano_bench import align_roofline, scenes
+    from pano_bench.run import pano_config
+    from pano_bench.scene_models import rotating
+    from pano_tpu_torch import PairStitcher
+    from pano_tpu_torch.ops import align, cuda_align
+
+    path = pathlib.Path(__file__).resolve().parent / "pano_bench"
+    cfg = json.loads((path / "configs" / "rotating_pair_4k.json").read_text())
+    conf = pano_config(cfg["pano_config"])
+    iters = conf.ransac.align_iterations
+    traffic = {"hfov_deg": 65, "scenes": [[[0, 0, 0], list(ALIGN_POSE)]]}
+    scene = rotating.make_pool(traffic, cfg, ALIGN_SEED, DEVICE, "device")[0]
+    left, right = scene.images
+    st = PairStitcher(conf.replace(ransac=dataclasses.replace(
+        conf.ransac, align_iterations=0)), print_timing=False, device=DEVICE)
+    st.stitch_pair_fast(left, right)
+    h = torch.from_numpy(st.last_estimate[:9].copy()).reshape(3, 3).to(DEVICE)
+    fr = cuda_align.frame(left.shape[:2], right.shape[:2])
+    p0 = align.to_normalized(h, fr)
+    before = cuda_align.launches
+    got = cuda_align.gauss_newton(p0, left, right, iters, fr)
+    check(cuda_align.launches == before + iters + 1,
+          "K11: not iterations + 1 launches")
+    want = cuda_align.gauss_newton_plain(p0, left, right, iters, fr)
+    ne = [cuda_align.N_START, cuda_align.N_END, cuda_align.SINGULAR]
+    check(torch.equal(got[ne], want[ne]), "K11 counts differ from the plain")
+    c = np.array([[0, 0, 1], [W_IMG, 0, 1], [W_IMG, H_IMG, 1], [0, H_IMG, 1]],
+                 np.float64)
+
+    def corners(state):
+        q = c @ align.from_normalized(state[:8], fr).cpu().numpy().T
+        return q[:, :2] / q[:, 2:]
+    corner_px = float(np.abs(corners(got) - corners(want)).max())
+    check(corner_px <= 1e-4, f"K11 corners {corner_px} px off the plain")
+    g = scenes.planted_globals(scene)[1]
+    k11 = functools.partial(cuda_align.gauss_newton, p0, left, right, iters,
+                            fr)
+    # The passes' bytes and operations over the overlap (align_roofline.py).
+    n = align_roofline.overlap_px(tuple(right.shape[:2]),
+                                  tuple(left.shape[:2]), g)
+    px = (iters + 1) * n
+    res["K11"] = dict(
+        ms=timer(k11),
+        plain_ms=timer(lambda: cuda_align.gauss_newton_plain(
+            p0, left, right, iters, fr), reps=3, warmup=1),
+        library_ms=None,
+        bound=bound(align_roofline.BYTES_PER_PX * px,
+                    align_roofline.F32_OPS_PER_PX * px, "f32",
+                    ((align_roofline.F64_OPS_PER_PX * px, "f64"),)),
+        max_abs_err=float((got[:8] - want[:8]).abs().max()))
+    device_runs.append(("K11", "device_ms", k11, None))
+    log("K11 align_gauss_newton", shape=tuple(right.shape), passes=iters + 1,
+        overlap_px=round(n), corner_px=corner_px,
+        mse=(float(got[cuda_align.E_START]), float(got[cuda_align.E_END])),
+        **res["K11"])
+
+
 def pyramid_rows(torch, timer, res, device_runs) -> None:
     """Phase 4's K8 (REDUCE) and K9 (the collapse step): every level of a
     chain window's 5-level blend torch.equal to the plain versions and
@@ -413,7 +490,8 @@ COUNTERS = {"K1": ("cuda_harris", "launches"),
             "K7": ("cuda_eigh", "launches"),
             "K8": ("cuda_blend", "reduce_launches"),
             "K9": ("cuda_blend", "collapse_launches"),
-            "K10": ("cuda_ransac", "launches")}
+            "K10": ("cuda_ransac", "launches"),
+            "K11": ("cuda_align", "launches")}
 # The overlay pair's launches (stitch_pair_fast, default config).
 PAIR_LAUNCHES = {"K1": 2, "K2": 2, "K3": 1, "K7": 1, "K10": 1, "K4a": 1}
 # Phase 5's strip cases: case -> (mode, blend, gain, launches beside the
@@ -1001,6 +1079,7 @@ def main() -> None:
         valid=n_valid, best_count=int(got[3]), **res["K10"])
     del got, want, match_pts
 
+    align_row(torch, timer, res, device_runs)
     pyramid_rows(torch, timer, res, device_runs)
     batched_rows(torch, timer, res, device_runs, strip, strip_np)
 
@@ -1024,14 +1103,16 @@ def main() -> None:
         log(case, **strip_on_card(strip_np, strip, case))
 
     # The record lines
-    names = {**KERNELS, **BATCHED, **PYRAMID}
+    names = {**KERNELS, **BATCHED, **PYRAMID, **ALIGN}
     print(json.dumps({"card": smi, "kernels": [
         {"name": names[k][0], "route": "cuda",
          "source": f"pano_tpu_torch/csrc/{names[k][1]}",
          "replaces": f"pano_tpu/ops/{names[k][2]}" if names[k][2]
+         else "none (the port's direct alignment)" if k in ALIGN
          else "none (pano_tpu/ops/blend.py, XLA)",
-         # every output torch.equal to the plain version's
-         "max_abs_err": 0.0,
+         # every output torch.equal to the plain version's but K11's,
+         # whose float64 sums run in another order
+         "max_abs_err": res[k].get("max_abs_err", 0.0),
          "ms": res[k]["ms"], "device_ms": res[k]["device_ms"],
          "plain_ms": res[k]["plain_ms"], "bound_ms": res[k]["bound"][0],
          "bound_by": res[k]["bound"][1], "library_ms": res[k]["library_ms"],

@@ -85,6 +85,9 @@ SIGNATURES = {
     # src, dst, valid, idx, hs, counts, best_h, best_count, scratch, m, n,
     # squared threshold, stream
     "pano_ransac_search": [_V] * 9 + [_I, _I, _F, _V],
+    # left, right, state, scratch, hl, wl, hr, wr, s, inv_s, cxl, cyl,
+    # cxr, cyr, passes, stream
+    "pano_align_gauss_newton": [_V] * 4 + [_I] * 4 + [_F] * 6 + [_I, _V],
 }
 
 _lib = None

@@ -3,7 +3,10 @@
 A field-for-field copy of ``pano_tpu/config.py``: the same frozen
 dataclasses, field names and defaults, so a configuration written for the
 JAX package means the same thing here. It is a copy and not an import
-because importing ``pano_tpu`` pulls in JAX.
+because importing ``pano_tpu`` pulls in JAX. One field is the port's
+own: ``RansacOptions.align_iterations``, the direct alignment after the
+refine (``ops/align.py``), off by default, so that a configuration
+converted from the JAX package estimates as it does there.
 
 The JAX package's ``use_pallas_*`` switches have no counterpart here
 (``config_from_reference`` drops them): every stage launches its
@@ -65,6 +68,13 @@ class RansacOptions:
     #                                 draw, the JAX package's own table
     refine: bool = True             # least-squares re-fit on the inliers
     min_inliers: int = 10           # quality gate before trusting the model
+    align_iterations: int = 0       # Gauss-Newton iterations of the direct
+    #                                 alignment of the two images after the
+    #                                 refine (ops/align.py; 0: off)
+
+    def __post_init__(self):
+        if self.align_iterations < 0:
+            raise ValueError("align_iterations must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,11 +109,13 @@ DEFAULT_CONFIG = PanoConfig()
 
 def config_from_reference(obj) -> PanoConfig:
     """Build this package's PanoConfig from any object with the same
-    fields, such as ``pano_tpu.config.PanoConfig``."""
+    fields, such as ``pano_tpu.config.PanoConfig``; a field of the port's
+    own that `obj` lacks keeps its default."""
 
     def convert(cls, sub):
         return cls(
-            **{f.name: getattr(sub, f.name) for f in dataclasses.fields(cls)}
+            **{f.name: getattr(sub, f.name, f.default)
+               for f in dataclasses.fields(cls)}
         )
 
     return PanoConfig(

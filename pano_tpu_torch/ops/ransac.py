@@ -7,7 +7,11 @@ each hypothesis's Hartley-normalized 4-point DLT, its inlier count over
 all matches, the first maximum; its plain version on the CPU), then the
 degeneracy guard and the masked least-squares refine through the
 smallest eigenvector of a 9x9 normal matrix (kernel K7,
-``ops/cuda_eigh.py``). Everything is float32; the package turns TF32
+``ops/cuda_eigh.py``), and, where the options ask for it, the direct
+alignment of that homography on the two images (``ops/align.py``, kernel
+K11; only the fused estimate, ``pipeline.estimate_row``, hands them over,
+and any other caller with the option on is refused). Everything is float32 (the
+alignment's sums float64); the package turns TF32
 off, so the refine's small matrix products are true fp32. Nothing here
 reads a device value on the host: constants are made on the device,
 gathers by a device index are ``index_select``, and the search and the
@@ -30,7 +34,8 @@ search, then ``finalize_ransac``). On a CUDA device with the default table
 (``sampler=None``) every shape in it is fixed by the configuration, so it
 is captured once per (device, stream, input shapes and dtypes, options)
 as a CUDA graph and replayed: the inputs are copied into the graph's own
-buffers, one graph launch runs the ~190 kernels and memsets the host
+buffers (where the estimate aligns, the two images too: 2 x 37 MiB at
+4156x3117), one graph launch runs the ~190 kernels and memsets the host
 would otherwise enqueue one by one, and the outputs come back as copies. The same kernels
 run on the same inputs in the same order, so the result is the eager
 one's bit for bit. Anything else (the CPU, an injected table, the
@@ -48,7 +53,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from pano_tpu_torch.config import RansacOptions
-from pano_tpu_torch.ops import cuda_eigh, cuda_ransac
+from pano_tpu_torch.ops import align as align_ops
+from pano_tpu_torch.ops import cuda_align, cuda_eigh, cuda_ransac
 from pano_tpu_torch.ops.cuda_ransac import inv3x3
 from pano_tpu_torch.timer import span
 
@@ -282,20 +288,26 @@ def ransac_homography(
     valid: torch.Tensor,       # (M,) bool
     opts: RansacOptions,
     sampler: Optional[Sampler] = None,
+    images: Tuple[torch.Tensor, ...] = (),
 ) -> RansacResult:
-    """Estimate H mapping src -> dst: RANSAC, then optional refine. On
-    the card with the default table, as a replay of the estimate's CUDA
-    graph (see the module's docstring)."""
+    """Estimate H mapping src -> dst: RANSAC, then optional refine, then
+    the optional direct alignment (``opts.align_iterations``) on
+    `images`, (left, right): the (h, w, 3) uint8 images that `pts_dst`
+    and `pts_src` lie in, which the option requires. On the card
+    with the default table, as a replay of the estimate's CUDA graph
+    (see the module's docstring)."""
+    images = tuple(images) if opts.align_iterations else ()
     with span("ransac"):
         if sampler is None and pts_src.device.type == "cuda":
-            return _graphed_estimate(pts_src, pts_dst, valid, opts)
-        return _estimate(pts_src, pts_dst, valid, opts, sampler)
+            return _graphed_estimate(pts_src, pts_dst, valid, opts, images)
+        return _estimate(pts_src, pts_dst, valid, opts, sampler, images)
 
 
 def _estimate(pts_src, pts_dst, valid, opts: RansacOptions,
-              sampler: Optional[Sampler] = None) -> RansacResult:
+              sampler: Optional[Sampler] = None,
+              images: Tuple[torch.Tensor, ...] = ()) -> RansacResult:
     """The whole estimate, launch by launch: the hypotheses' search, then
-    the guard, masks and refine."""
+    the guard, masks, refine and alignment."""
     if sampler is None:
         sampler = default_sampler(
             opts.num_iterations, opts.num_samples, opts.seed, pts_src.device
@@ -304,7 +316,8 @@ def _estimate(pts_src, pts_dst, valid, opts: RansacOptions,
         pts_src, pts_dst, valid, opts.num_iterations, opts.num_samples,
         opts.distance_threshold, sampler,
     )
-    return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid, opts)
+    return finalize_ransac(best_h, best_count, pts_src, pts_dst, valid, opts,
+                           images)
 
 
 def finalize_ransac(
@@ -314,8 +327,15 @@ def finalize_ransac(
     pts_dst: torch.Tensor,
     valid: torch.Tensor,
     opts: RansacOptions,
+    images: Tuple[torch.Tensor, ...] = (),
 ) -> RansacResult:
-    """Degeneracy guard + inlier mask + optional least-squares refine."""
+    """Degeneracy guard + inlier mask + optional least-squares refine +
+    optional direct alignment on `images` (left, right). The count, the
+    mask and the gate stay the matches' support of the refined H: the
+    alignment moves H by tenths of a pixel."""
+    if opts.align_iterations and not images:
+        raise ValueError("ransac.align_iterations needs the two images: "
+                         "only the fused estimate (estimate_row) aligns")
     with span("ransac.finalize"):
         n_valid = valid.sum(dtype=torch.int32)
         enough = n_valid >= opts.num_samples
@@ -337,6 +357,9 @@ def finalize_ransac(
             best_h = torch.where(use_refined, refined, best_h)
             mask0 = torch.where(use_refined, mask_r, mask0)
             best_count = torch.where(use_refined, count_r, best_count)
+        if opts.align_iterations:
+            best_h = align_ops.align_homography(best_h, *images,
+                                                opts.align_iterations)
         ok = (best_count >= opts.min_inliers) & enough
         return RansacResult(
             H=best_h, inlier_count=best_count, num_matches=n_valid,
@@ -359,8 +382,8 @@ graph_replays = 0
 GRAPH_CACHE_SIZE = 4
 
 # The hand-written kernels an estimate launches, whose launch counters a
-# replay advances by the launches its graph holds: K7 and K10.
-_COUNTED = (cuda_eigh, cuda_ransac)
+# replay advances by the launches its graph holds: K7, K10 and K11.
+_COUNTED = (cuda_eigh, cuda_ransac, cuda_align)
 
 _graphs: "collections.OrderedDict[tuple, _GraphedEstimate]" = \
     collections.OrderedDict()
@@ -377,7 +400,8 @@ def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
 
 class _GraphedEstimate:
     """``_estimate`` captured for one key: the graph, its input buffers
-    and captured outputs, and every tensor the graph reads that it did not
+    (the match points and flags, and the two images where the estimate
+    aligns) and captured outputs, and every tensor the graph reads that it did not
     allocate (the default table's bit planes and sqrt(2), which the lru
     caches may drop: a freed, reused address would corrupt later replays).
     Dropping the entry drops the graph and its pool."""
@@ -405,13 +429,15 @@ class _GraphedEstimate:
         side = _capture_stream(device)
         side.wait_stream(stream)
         with torch.cuda.stream(side):
-            first = _estimate(*self.inputs, self.opts)
+            first = _estimate(*self.inputs[:3], self.opts, None,
+                              self.inputs[3:])
         for t in first:
             t.record_stream(stream)
         before = [mod.launches for mod in _COUNTED]
         with torch.cuda.graph(self.graph, stream=side,
                               capture_error_mode="thread_local"):
-            self.outputs = _estimate(*self.inputs, self.opts)
+            self.outputs = _estimate(*self.inputs[:3], self.opts, None,
+                                     self.inputs[3:])
         # A capture runs nothing; each replay runs the kernel launches it
         # holds.
         self.held_launches = [mod.launches - n
@@ -437,11 +463,11 @@ class _GraphedEstimate:
         return RansacResult(*(t.clone() for t in self.outputs))
 
 
-def _graphed_estimate(pts_src, pts_dst, valid,
-                      opts: RansacOptions) -> RansacResult:
+def _graphed_estimate(pts_src, pts_dst, valid, opts: RansacOptions,
+                      images: Tuple[torch.Tensor, ...] = ()) -> RansacResult:
     """``_estimate`` with the default table on the card: the first call
     of a key captures (its result is the warm-up's), later calls replay."""
-    inputs = (pts_src, pts_dst, valid)
+    inputs = (pts_src, pts_dst, valid, *images)
     device = pts_src.device
     key = (device, torch.cuda.current_stream(device).cuda_stream, opts,
            tuple((t.shape, t.dtype) for t in inputs))

@@ -13,8 +13,10 @@ Fused path (``stitch_pair_fast``):
 1. Harris on both images (kernel K1), top-K keypoints.
 2. 5x5 patch descriptors (K2), streaming argmin-SSD matching with ratio
    test and cross-check (K3), right image as query, left as train.
-3. RANSAC with least-squares refine (batched torch code; the refine's
-   9x9 eigenvector by kernel K7). Steps 1-3 read nothing on the host.
+3. RANSAC with least-squares refine (the hypotheses' search by kernel
+   K10, the refine's 9x9 eigenvector by K7) and, with the option
+   ``ransac.align_iterations``, the direct alignment of H on the two
+   images (``ops/align.py``, K11). Steps 1-3 read nothing on the host.
 4. ONE host sync on the 14-float estimate row
    [H (9), inlier_count, num_matches, ok, match_count, 0].
 5. Canvas geometry on the host with the fused path's own f32 formulas,
@@ -514,7 +516,8 @@ class PairStitcher:
 def estimate_row(kps_l, kps_r, left, right, config: PanoConfig,
                  sampler: Optional[ransac_ops.Sampler] = None):
     """The fused estimate after detection: match (right as query, left as
-    train), RANSAC, and the (14,) f32 row [H (9), inlier_count,
+    train), RANSAC (aligned on the two images where the configuration
+    asks for it), and the (14,) f32 row [H (9), inlier_count,
     num_matches, ok, match_count, 0] on the device, with no host sync.
     Returns (row, (pts_q, pts_t, valid))."""
     matches = match_ops.match_keypoints(kps_r, kps_l, right, left,
@@ -522,7 +525,7 @@ def estimate_row(kps_l, kps_r, left, right, config: PanoConfig,
     pts_q, pts_t, valid = match_ops.gather_match_points(kps_r, kps_l,
                                                         matches)
     res = ransac_ops.ransac_homography(pts_q, pts_t, valid, config.ransac,
-                                       sampler=sampler)
+                                       sampler=sampler, images=(left, right))
     row = torch.cat(
         [
             res.H.reshape(-1).float(),

@@ -1754,19 +1754,25 @@ def _flagged_syncs(fn):
 
 @pytest.mark.parametrize("path", ["dispatch", "chain_pending",
                                   "auto_pair_rows", "hyp_search",
-                                  "batched"])
+                                  "batched", "dispatch_aligned"])
 def test_estimate_paths_do_not_sync_on_the_card(path):
     """Every path that estimates a pair enqueues its whole estimate with no
     host sync before its one fetch: the pair's dispatch, the chain's
     pending estimates, auto's detection and pair rows, the hyp-sharded
-    search on a mesh of the card, the batched estimate."""
+    search on a mesh of the card, the batched estimate, the pair's
+    dispatch with the direct alignment."""
+    import dataclasses
+
     from pano_tpu_torch import DEFAULT_CONFIG, PairStitcher, pipeline
     from pano_tpu_torch.parallel import shard
 
     cfg = DEFAULT_CONFIG
+    if path == "dispatch_aligned":
+        cfg = cfg.replace(ransac=dataclasses.replace(cfg.ransac,
+                                                     align_iterations=3))
     imgs = [torch.from_numpy(im).cuda() for im in _strip_images(98)]
     st = PairStitcher(cfg, print_timing=False, device="cuda")
-    if path == "dispatch":
+    if path in ("dispatch", "dispatch_aligned"):
         def fn():
             return st.dispatch(imgs[0], imgs[1]).row
     elif path == "chain_pending":
@@ -2063,6 +2069,133 @@ def test_ransac_search_launches_per_estimate():
         fn()
         torch.cuda.synchronize()
         assert cuda_ransac.launches == before + 1
+
+
+# --- the direct alignment (ops/cuda_align.py, csrc/align.cu) ----------------
+
+
+@pytest.fixture(scope="module")
+def rotating_4k():
+    """The rotating camera's first and last rotate_serial poses (yaw 30
+    and 40 degrees) at 4156x3117 on the card (pano_bench's rotating scene
+    model), the rotating_pair_4k configuration, and each pair's RANSAC H
+    without the alignment."""
+    import dataclasses
+    import json
+    import sys
+    import types
+
+    if _REPO not in sys.path:
+        sys.path.insert(0, _REPO)
+    from pano_bench.run import pano_config
+    from pano_bench.scene_models import rotating
+    from pano_tpu_torch import PairStitcher
+
+    bench = os.path.join(_REPO, "pano_bench")
+    with open(os.path.join(bench, "configs", "rotating_pair_4k.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(bench, "traffic", "rotate_serial.json")) as f:
+        traffic = json.load(f)
+    traffic["scenes"] = [traffic["scenes"][0], traffic["scenes"][-1]]
+    pool = rotating.make_pool(traffic, cfg, 4200000001, "cuda", "device")
+    conf = pano_config(cfg["pano_config"])
+    st = PairStitcher(conf.replace(ransac=dataclasses.replace(
+        conf.ransac, align_iterations=0)), print_timing=False, device="cuda")
+    hs = []
+    for scene in pool:
+        st.stitch_pair_fast(*scene.images)
+        hs.append(torch.from_numpy(st.last_estimate[:9].copy())
+                  .reshape(3, 3).cuda())
+    return types.SimpleNamespace(pool=pool, conf=conf, hs=hs)
+
+
+def _corners(h, hw):
+    """Image corners (0, 0), (w, 0), (w, h), (0, h) mapped by `h`."""
+    c = np.array([[0, 0, 1], [hw[1], 0, 1], [hw[1], hw[0], 1],
+                  [0, hw[0], 1]], np.float64)
+    q = c @ np.asarray(h, np.float64).T
+    return q[:, :2] / q[:, 2:]
+
+
+@pytest.mark.parametrize("k", [0, 1])
+def test_align_kernel_vs_plain(rotating_4k, k):
+    """K11 against its plain version at 4156x3117 on a rotating pair from
+    RANSAC's H, in iterations + 1 launches a call: the overlap's pixel
+    counts and the singular flag equal (the same float32 mask), the mean
+    squared residuals within 1e-9 relative and image 1's corners of the
+    aligned H within 1e-4 px (the float64 sums run in another order: the
+    first card run read 2.6e-12 px)."""
+    from pano_tpu_torch.ops import align, cuda_align
+
+    left, right = rotating_4k.pool[k].images
+    iters = rotating_4k.conf.ransac.align_iterations
+    fr = cuda_align.frame(left.shape[:2], right.shape[:2])
+    p0 = align.to_normalized(rotating_4k.hs[k], fr)
+    before = cuda_align.launches
+    got = cuda_align.gauss_newton(p0, left, right, iters, fr)
+    assert cuda_align.launches == before + iters + 1
+    want = cuda_align.gauss_newton_plain(p0, left, right, iters, fr)
+    ne = [cuda_align.N_START, cuda_align.N_END, cuda_align.SINGULAR]
+    assert torch.equal(got[ne], want[ne])
+    assert float(got[cuda_align.SINGULAR]) == 0.0
+    e = [cuda_align.E_START, cuda_align.E_END]
+    assert torch.allclose(got[e], want[e], rtol=1e-9, atol=0)
+    hw = left.shape[:2]
+    d = _corners(align.from_normalized(got[:8], fr).cpu(), hw) \
+        - _corners(align.from_normalized(want[:8], fr).cpu(), hw)
+    assert np.abs(d).max() <= 1e-4
+
+
+def test_align_in_the_estimate_graph(rotating_4k):
+    """The alignment inside the estimate's CUDA graph: a replay runs
+    K11's iterations + 1 passes and waits nowhere, its row equals the
+    eager estimate's (the default table injected) bit for bit, and image
+    1's corners land within half a pixel of the planted ones (0.03-0.43
+    px on 176 pairs of the diagnostic runs), where RANSAC's land
+    0.3-14 px off."""
+    from pano_tpu_torch import PairStitcher
+    from pano_tpu_torch.ops import cuda_align, ransac
+
+    conf = rotating_4k.conf
+    iters = conf.ransac.align_iterations
+    st = PairStitcher(conf, print_timing=False, device="cuda")
+    eager = PairStitcher(conf, print_timing=False, device="cuda",
+                         sampler=_default_table(conf.ransac))
+    for k, scene in enumerate(rotating_4k.pool):
+        left, right = scene.images
+        st.dispatch(left, right)                # captured on the first
+        torch.cuda.synchronize()
+        replays = ransac.graph_replays
+        before = cuda_align.launches
+        syncs, row = _flagged_syncs(lambda: st.dispatch(left, right).row)
+        assert syncs == []
+        assert ransac.graph_replays == replays + 2
+        assert cuda_align.launches == before + 2 * (iters + 1)
+        torch.cuda.synchronize()
+        want, _ = eager._fused_estimate_impl(left, right)
+        assert torch.equal(row, want.cpu())
+        g = scene.planted[1]
+        err = np.abs(_corners(row[:9].double().reshape(3, 3).numpy(),
+                              left.shape[:2])
+                     - _corners(g, left.shape[:2])).max()
+        assert err <= 0.5, (k, err)
+
+
+def test_rotating_compose_on_the_whole_pixel_frame(rotating_4k):
+    """K4a on a rotating pair's quadrilateral footprint at 4156x3117: the
+    aligned stitch's panorama against the reference drawn with its own H
+    on its whole-pixel frame (``compose_reference.py``), the same canvas
+    and every channel within 2 outside the border band (1 on each of the
+    CPU tests' scenes at 320x256)."""
+    from compose_reference import compose_max_d
+    from pano_tpu_torch import PairStitcher
+
+    st = PairStitcher(rotating_4k.conf, print_timing=False, device="cuda")
+    for k, scene in enumerate(rotating_4k.pool):
+        pano = st.stitch_pair_fast(*scene.images)
+        h = st.last_estimate[:9].astype(np.float64).reshape(3, 3)
+        canvas_px, pixel = compose_max_d(pano, *scene.images, h)
+        assert canvas_px == 0 and pixel <= 2, (k, canvas_px, pixel)
 
 
 # --- multiband's pyramid kernels (ops/cuda_blend.py, csrc/pyramid.cu) -------
